@@ -1,0 +1,94 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use and load them.
+
+Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
+plain C interface (``extern "C"``), loaded with ``ctypes``: no PyTorch
+headers, so a build takes seconds. Libraries go to
+``<checkout>/build/repro_torch/<name>-<hash>.so``, keyed by a hash of the
+source and the flags, so an edited source never loads a stale library.
+``build_all`` starts one ``nvcc`` per source, all at once, and waits for
+them. Nothing here runs at import time: the CPU tests import every module
+of the package on a machine with no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+KERNELS = ("sched_score",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+#: name -> {"seconds": build wall time, "ptxas": compiler report}; filled
+#: by the builds this process ran (empty when the library was cached).
+build_log: Dict[str, dict] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").is_file():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the CUDA kernels build on a machine with "
+                           "the CUDA toolkit")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def _start(name: str, out: Path):
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile every listed kernel whose library is missing, one ``nvcc``
+    per source, all started together; returns name -> library path."""
+    names = tuple(names or KERNELS)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {n: library_path(n) for n in names}
+    todo = {n: p for n, p in paths.items() if not p.is_file()}
+    t0 = time.perf_counter()
+    procs = {n: _start(n, p) for n, p in todo.items()}
+    failed = []
+    for n, (proc, tmp) in procs.items():
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{n}: nvcc exited {proc.returncode}\n{report}")
+            continue
+        os.replace(tmp, todo[n])  # atomic: a concurrent loader sees all or nothing
+        build_log[n] = {"seconds": time.perf_counter() - t0, "ptxas": report}
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = build_all([name])[name]
+            lib = ctypes.CDLL(str(path))
+            _loaded[name] = lib
+        return lib

@@ -1,0 +1,114 @@
+"""Plan-scoring statistics: the CUDA kernel's wrapper and its plain version.
+
+Scores P candidate scheduling plans over K devices in one pass (the inner
+loop of the host searchers: Formula 2 = alpha * masked-max round time +
+beta * fairness-variance increment). Per plan it returns three sufficient
+statistics:
+
+  col 0:  max_{k in V} t_k          (Formula 3; -1e30 for an empty plan)
+  col 1:  |V| = sum_k v_k           (selected count)
+  col 2:  sum_{k in V} (2 c_k + 1)  (fairness increment numerator)
+
+from which ``repro_torch.core.scoring`` combines the cost on the host in
+float64. ``plan_stats`` launches ``csrc/sched_score.cu`` for CUDA tensors
+and counts each launch in ``launches``; for CPU tensors it is
+``plan_stats_ref``, the plain PyTorch version. There is no fallback: a CUDA
+tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+NEG_INF = -1e30
+
+#: Kernel launches since the last reset (one per ``plan_stats`` call that
+#: launched; the plain version and empty batches do not count).
+launches = 0
+
+
+def plan_stats_ref(times: torch.Tensor, weights: torch.Tensor,
+                   plans: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch (P, 3) stats: [masked max time, selected count,
+    selected weight sum], float32, on the inputs' device.
+
+    The weight sum accumulates in float64 and rounds to float32 once, as
+    the kernel does, so plans that select the same multiset of weights get
+    the same column 2 wherever those devices sit."""
+    sel = plans != 0
+    P, K = sel.shape
+    t = times.to(torch.float32)
+    w = weights.to(torch.float32)
+    if K == 0:
+        tmax = torch.full((P,), NEG_INF, dtype=torch.float32,
+                          device=sel.device)
+    else:
+        tmax = torch.where(sel, t[None, :], NEG_INF).amax(dim=1)
+    n = sel.sum(dim=1).to(torch.float32)
+    ws = torch.where(sel, w[None, :], 0.0).sum(
+        dim=1, dtype=torch.float64).to(torch.float32)
+    return torch.stack([tmax, n, ws], dim=1)
+
+
+def _check(times, weights, plans) -> torch.Tensor:
+    if plans.dtype == torch.bool:
+        plans = plans.view(torch.int8)
+    if plans.dtype != torch.int8 or plans.dim() != 2:
+        raise TypeError(f"plans must be a (P, K) int8 or bool tensor, got "
+                        f"{tuple(plans.shape)} {plans.dtype}")
+    K = plans.shape[1]
+    for name, x in (("times", times), ("weights", weights)):
+        if x.dtype != torch.float32 or tuple(x.shape) != (K,):
+            raise TypeError(f"{name} must be a ({K},) float32 tensor, got "
+                            f"{tuple(x.shape)} {x.dtype}")
+    if K >= 2 ** 31:
+        raise ValueError(f"K = {K} exceeds the kernel's int32 device index")
+    return plans
+
+
+def _entry():
+    """The kernel's C entry point, built and typed at first use."""
+    from repro_torch.kernels import build
+
+    fn = build.load("sched_score").sched_plan_stats
+    if fn.argtypes is None:  # ints would pass as 32-bit, cutting pointers
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [
+            ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def plan_stats(times: torch.Tensor, weights: torch.Tensor,
+               plans: torch.Tensor) -> torch.Tensor:
+    """(K,) f32 times, (K,) f32 weights, (P, K) int8/bool plans -> (P, 3)
+    f32 stats (see module docstring). CUDA tensors launch the kernel; CPU
+    tensors take ``plan_stats_ref``; a mix raises."""
+    global launches
+    plans = _check(times, weights, plans)
+    devices = {times.device, weights.device, plans.device}
+    if len(devices) != 1:
+        raise ValueError(f"plan_stats inputs on several devices: {devices}")
+    if plans.device.type == "cpu":
+        return plan_stats_ref(times, weights, plans)
+    if plans.device.type != "cuda":
+        raise ValueError(f"plan_stats has no kernel for {plans.device}")
+    for name, x in (("times", times), ("weights", weights),
+                    ("plans", plans)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    P, K = plans.shape
+    out = torch.empty((P, 3), dtype=torch.float32, device=plans.device)
+    if P == 0:
+        return out
+    fn = _entry()
+    vec = int(K % 16 == 0 and plans.data_ptr() % 16 == 0)
+    stream = torch.cuda.current_stream(plans.device).cuda_stream
+    rc = fn(times.data_ptr(), weights.data_ptr(), plans.data_ptr(),
+            out.data_ptr(), P, K, vec, stream)
+    if rc != 0:
+        raise RuntimeError(f"sched_score kernel launch failed: CUDA error "
+                           f"{rc} at (P, K) = ({P}, {K})")
+    launches += 1
+    return out
