@@ -23,6 +23,28 @@ non-zero with a traceback, and no phase's failure is caught.
    and est_cost within 1e-5. Greedy on the same preset covers the index
    form on the card and must match the numpy backend's records.
 
+4. fl-kernels — the compressed-FedAvg scatter-add against its plain
+   PyTorch version on the card, within 1e-5 relative plus absolute, at the
+   main path's shapes (VGG16's 4096x4096 fc leaf at n = 10 and ratios 0.01
+   and 0.1, a 3x3x512x512 conv leaf at 0.01, LeNet-5's leaves at n = 5)
+   and at edge shapes (negative and out-of-range indices, an index repeated
+   within a row, size 1, n*k not a multiple of the block, int32 indices).
+   Times of the kernel, the plain version and one ``index_add_`` call (the
+   library yardstick, never called by the port), beside the bound.
+5. fl-main — real federated training through ``ExperimentSpec.build(
+   device="cuda").run()``: the ``real-fl-two-job`` preset (LeNet-5 + CNN-B,
+   40 devices, greedy) for 3 rounds and one VGG16 job (100 devices,
+   n_sel = 10, non-IID, group A's epochs and batch size) for 2 rounds; records
+   finite, accuracy in [0, 1], one ``fused_round`` span per record. Then,
+   on VGG16's last cohort, the locals are trained again from the runtime's
+   global params and aggregated by ``fedavg_compressed(ratio=0.01,
+   impl="cuda")``: one kernel launch per leaf (32), the result within
+   1e-5 relative plus absolute of ``impl="ref"``, and at ratio 1.0 of
+   ``fedavg``. The VGG16 round is split into local SGD, FedAvg and eval,
+   and the compressed aggregation into top-k and kernel time; VGG16's
+   first-round loss at group A's lr of 0.05 and at 0.01 is recorded beside
+   the lr the job runs at (``VGG16_LR``).
+
 The line before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
 them; the last line is ``{"ok": true, "device": {...}}``.
@@ -31,6 +53,7 @@ them; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -310,6 +333,307 @@ def phase_main(torch) -> dict:
         greedy_vs_numpy_max_est_cost_diff=greedy_diff)
 
 
+# ---- phase 4 -------------------------------------------------------------
+
+SCATTER_TOL = 1e-5             # relative plus absolute (tests/test_fl.py)
+VGG16_FC = 4096 * 4096         # VGG16's largest leaf (fc2 weight)
+VGG16_CONV = 3 * 3 * 512 * 512
+
+
+def check_close(got, exp, what: str) -> float:
+    """max |got - exp|, failing unless |got - exp| <= tol * (1 + |exp|)."""
+    err = (got.double() - exp.double()).abs()
+    if not bool((err <= SCATTER_TOL * (1.0 + exp.double().abs())).all()):
+        raise AssertionError(f"{what}: off by {float(err.max())}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def topk_stream(torch, dev, n, size, ratio, seed, idx_dtype):
+    """(vals, idx, w) as the main path makes them: each device's top-k of a
+    random delta row, weights from partition-size-like draws."""
+    from repro_torch.optim.compression import topk_count
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = topk_count(ratio, size)
+    flat = torch.randn((n, size), device=dev, generator=g)
+    idx = torch.topk(flat.abs(), k, dim=1).indices
+    vals = torch.gather(flat, 1, idx)
+    w = torch.rand(n, device=dev, generator=g) + 0.5
+    del flat
+    return vals, idx.to(idx_dtype).contiguous(), w / w.sum()
+
+
+def edge_streams(torch, dev):
+    g = torch.Generator(device=dev).manual_seed(77)
+
+    def rand(n, k, size, lo=0, dtype=None):
+        vals = torch.randn((n, k), device=dev, generator=g)
+        idx = torch.randint(lo, size, (n, k), device=dev, generator=g)
+        w = torch.rand(n, device=dev, generator=g) + 0.1
+        return vals, idx.to(dtype or torch.int64), w
+
+    out = []
+    v, i, w = rand(3, 17, 64)
+    i[:, ::4] = -1                                  # padding
+    out.append(("negative-idx", v, i, w, 64))
+    out.append(("repeat-in-row", *rand(4, 33, 10), 10))
+    v, i, w = rand(2, 10, 8)
+    i[0, 0], i[1, 3], i[1, 4] = 8, 100, 2 ** 40     # past the end
+    out.append(("idx-ge-size", v, i, w, 8))
+    v, i, w = rand(5, 3, 1)
+    i[0, 1] = -7
+    out.append(("size-1", v, i, w, 1))
+    out.append(("ragged-nk-int32", *rand(7, 301, 1000, dtype=torch.int32),
+                1000))
+    return out
+
+
+def scatter_bound(n, k, idx_bytes, size):
+    nbytes = n * k * (4 + idx_bytes) + 4 * n + 4 * size
+    ops = 2 * n * k                                  # multiply + add each
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_fl_kernels(torch, dev) -> dict:
+    from repro_torch.configs.paper_models import lenet5
+    from repro_torch.kernels import scatter_add as sa
+    from repro_torch.models.cnn_zoo import cnn_init
+    from repro_torch.tree import tree_leaves
+
+    main = [("vgg16-fc r=0.01", 10, VGG16_FC, 0.01, torch.int64),
+            ("vgg16-fc r=0.1", 10, VGG16_FC, 0.1, torch.int64),
+            ("vgg16-conv3x3x512x512 r=0.01", 10, VGG16_CONV, 0.01,
+             torch.int64),
+            ("vgg16-fc r=0.01 int32", 10, VGG16_FC, 0.01, torch.int32)]
+    for j, leaf in enumerate(tree_leaves(cnn_init(lenet5(), device="cpu"))):
+        main.append((f"lenet5-leaf{j}{tuple(leaf.shape)} r=0.01", 5,
+                     leaf.numel(), 0.01, torch.int64))
+    rows = []
+    cases = [(label, *topk_stream(torch, dev, n, size, ratio, 2000 + i,
+                                  dtype), size, True)
+             for i, (label, n, size, ratio, dtype) in enumerate(main)]
+    cases += [(label, v, i, w, size, False)
+              for label, v, i, w, size in edge_streams(torch, dev)]
+    for label, vals, idx, w, size, is_main in cases:
+        got = sa.scatter_add(vals, idx, w, size)
+        exp = sa.scatter_add_ref(vals, idx, w, size)
+        torch.cuda.synchronize()
+        err = check_close(got, exp, f"scatter_add {label}")
+        n, k = vals.shape
+        big = n * k >= 10 ** 6
+        kernel_ms = cuda_time_ms(
+            torch, lambda: sa.scatter_add(vals, idx, w, size),
+            inner=10 if big else 50)
+        plain_ms = cuda_time_ms(
+            torch, lambda: sa.scatter_add_ref(vals, idx, w, size),
+            inner=5 if big else 20)
+        library_ms = None
+        if is_main:  # index_add_ refuses padding; main streams have none
+            flat_idx = idx.reshape(-1)
+            library_ms = cuda_time_ms(
+                torch, lambda: torch.zeros(size, device=dev).index_add_(
+                    0, flat_idx, (vals * w[:, None]).reshape(-1)),
+                inner=10 if big else 50)
+        bound_ms, bound_by = scatter_bound(n, k, idx.element_size(), size)
+        rows.append(dict(label=label, n=n, k=k, size=size,
+                         idx_dtype=str(idx.dtype), max_abs_err=err,
+                         kernel_ms=kernel_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
+    del cases
+    torch.cuda.empty_cache()
+    return {"scatter_add": rows}
+
+
+# ---- phase 5 -------------------------------------------------------------
+
+# Group A's lr of 0.05 (and 0.02, 0.01) gives a NaN loss in VGG16's first
+# round on this synthetic data; the reference's math diverges the same way
+# (tests/test_torch_runtime.py::test_group_a_lr_diverges_alike). 0.005 is
+# the largest rate tried that stays finite.
+VGG16_LR = 0.005
+
+
+def vgg16_spec():
+    """One VGG16 job over 100 non-IID devices at group A's local epochs and
+    batch size (``configs/paper_models.py::group_a``) and ``VGG16_LR``."""
+    from repro_torch.experiment.spec import ExperimentSpec, JobSpec, PoolSpec
+
+    job = JobSpec(name="paper-vgg16", model="paper-vgg16",
+                  target_metric=0.55, max_rounds=2, local_epochs=5,
+                  batch_size=30, lr=VGG16_LR)
+    return ExperimentSpec(name="vgg16-real-fl-greedy", jobs=(job,),
+                          pool=PoolSpec(num_devices=100, seed=5),
+                          scheduler="greedy", runtime="real_fl",
+                          non_iid=True, n_sel=10)
+
+
+def check_fl_records(records, what: str) -> None:
+    import numpy as np
+
+    if not records:
+        raise AssertionError(f"{what}: no records")
+    for r in records:
+        if not (np.isfinite(r.loss) and np.isfinite(r.accuracy)):
+            raise AssertionError(f"{what}: non-finite metrics {r}")
+        if not 0.0 <= r.accuracy <= 1.0:
+            raise AssertionError(f"{what}: accuracy {r.accuracy}")
+
+
+def run_traced(torch, spec) -> tuple:
+    """Build and run ``spec`` on the card with the tracer on; returns
+    (result, wall seconds, per-span-name lists of durations in ms, runtime).
+    A ``fused_round`` span queues a round's training; the ``metrics_sync``
+    span after it waits for the card to finish it."""
+    from repro_torch.monitoring import trace
+
+    exp = spec.build(device="cuda")
+    trace.get_tracer().clear()
+    trace.enable()
+    try:
+        t0 = time.perf_counter()
+        result = exp.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        trace.disable()
+    spans = {"fused_round": [], "metrics_sync": []}
+    for e in trace.get_tracer().events():
+        if e["name"] in spans:
+            spans[e["name"]].append(e["dur"] / 1e3)
+    trace.get_tracer().clear()
+    check_fl_records(result.records, spec.name)
+    if len(spans["fused_round"]) != len(result.records):
+        raise AssertionError(f"{spec.name}: {len(spans['fused_round'])} "
+                             f"fused_round spans for {len(result.records)} "
+                             "records")
+    return result, wall_s, spans, exp.engine.runtime
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_fl_main(torch) -> dict:
+    from repro_torch.experiment.presets import get_preset
+    from repro_torch.fl.aggregation import fedavg, fedavg_compressed
+    from repro_torch.fl.runtime import _local_train_batch
+    from repro_torch.kernels import ops, scatter_add as sa, sched_score
+    from repro_torch.models.cnn_zoo import cnn_loss_and_accuracy
+    from repro_torch.optim.compression import topk_count
+    from repro_torch.tree import tree_leaves
+
+    # The main path: both training runs and the compressed aggregation,
+    # with every launch count at 0 just before and read just after.
+    sa.launches = 0
+    sched_score.launches = 0
+    two = get_preset("real-fl-two-job", scheduler="greedy", rounds=3)
+    two_res, two_wall, two_spans, _ = run_traced(torch, two)
+    vgg = vgg16_spec()
+    vgg_res, vgg_wall, vgg_spans, rt = run_traced(torch, vgg)
+
+    grp = rt.groups[0]
+    ids = torch.as_tensor(vgg_res.records[-1].device_ids,
+                          device=grp.partition.device)
+    g = rt.params_of(0)
+    idx = grp.partition[0][ids]
+    locals_, train_s = timed(torch, lambda: _local_train_batch(
+        g, grp.cfg, grp.x[0][idx], grp.y[0][idx], grp.epochs,
+        grp.batch_size, grp.lr))
+    w = grp.sizes[0][ids]
+    ratio = 0.01
+    comp, comp_s = timed(torch, lambda: fedavg_compressed(
+        g, locals_, w, ratio, impl="cuda"))
+    launches, plan_launches = sa.launches, sched_score.launches
+    leaves = len(tree_leaves(g))
+    if launches != leaves:
+        raise AssertionError(f"scatter_add launched {launches} times for "
+                             f"{leaves} leaves")
+
+    ref = fedavg_compressed(g, locals_, w, ratio, impl="ref")
+    err = max(check_close(a, b, "fedavg_compressed cuda vs ref")
+              for a, b in zip(tree_leaves(comp), tree_leaves(ref)))
+    full = fedavg_compressed(g, locals_, w, 1.0, impl="cuda")
+    plain, avg_s = timed(torch, lambda: fedavg(locals_, w))
+    full_err = max(check_close(a, b, "fedavg_compressed(1.0) vs fedavg")
+                   for a, b in zip(tree_leaves(full), tree_leaves(plain)))
+    del ref, full
+
+    def eval_once():
+        with torch.no_grad():
+            return cnn_loss_and_accuracy(plain, grp.cfg, grp.eval_x[0],
+                                         grp.eval_y[0])
+
+    _, eval_s = timed(torch, eval_once)
+
+    # Why VGG16_LR: VGG16's first-round loss at group A's lr and between
+    # (recorded, not checked).
+    lr_probe = {}
+    for lr in (0.05, 0.01, VGG16_LR):
+        probe = vgg.replace(jobs=(dataclasses.replace(
+            vgg.jobs[0], lr=lr, max_rounds=1),))
+        lr_probe[str(lr)] = probe.run(device="cuda").records[0].loss
+
+    # fedavg_compressed's device time, split into top-k and kernel.
+    wn = w / w.sum()
+    streams = []
+    for gl, sl in zip(tree_leaves(g), tree_leaves(locals_)):
+        flat = (sl - gl[None]).reshape(sl.shape[0], -1)
+        k = topk_count(ratio, gl.numel())
+        ix = torch.topk(flat.abs(), k, dim=1).indices
+        streams.append((torch.gather(flat, 1, ix), ix, gl.numel()))
+
+    def topk_only():
+        for gl, sl in zip(tree_leaves(g), tree_leaves(locals_)):
+            flat = (sl - gl[None]).reshape(sl.shape[0], -1)
+            ix = torch.topk(flat.abs(), topk_count(ratio, gl.numel()),
+                            dim=1).indices
+            torch.gather(flat, 1, ix)
+
+    def kernel_only():
+        for v, ix, size in streams:
+            ops.scatter_add(v, ix, wn, size, impl="cuda")
+
+    total_ms = cuda_time_ms(
+        torch, lambda: fedavg_compressed(g, locals_, w, ratio, impl="cuda"),
+        inner=3)
+    topk_ms = cuda_time_ms(torch, topk_only, inner=3)
+    kernel_ms = cuda_time_ms(torch, kernel_only, inner=3)
+    return dict(
+        two_job=dict(preset="real-fl-two-job", scheduler="greedy",
+                     rounds=len(two_res.records),
+                     fused_round=len(two_spans["fused_round"]),
+                     fused_round_ms=two_spans["fused_round"],
+                     metrics_sync_ms=two_spans["metrics_sync"],
+                     wall_s=two_wall,
+                     s_per_round=two_wall / len(two_res.records),
+                     accuracy=[r.accuracy for r in two_res.records]),
+        vgg16=dict(spec=vgg.name, params=grp.cfg.param_count(),
+                   rounds=len(vgg_res.records),
+                   fused_round=len(vgg_spans["fused_round"]),
+                   fused_round_ms=vgg_spans["fused_round"],
+                   metrics_sync_ms=vgg_spans["metrics_sync"],
+                   wall_s=vgg_wall,
+                   s_per_round=vgg_wall / len(vgg_res.records),
+                   accuracy=[r.accuracy for r in vgg_res.records],
+                   cohort=int(ids.numel()),
+                   local_sgd_s=train_s, fedavg_s=avg_s, eval_s=eval_s,
+                   fedavg_compressed_s=comp_s,
+                   first_round_loss_by_lr=lr_probe),
+        compressed=dict(ratio=ratio, leaves=leaves, launches=launches,
+                        plan_stats_launches=plan_launches,
+                        max_abs_err_vs_ref=err,
+                        ratio_1_max_abs_err_vs_fedavg=full_err,
+                        total_ms=total_ms, topk_ms=topk_ms,
+                        kernel_ms=kernel_ms))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's details here")
@@ -346,8 +670,15 @@ def main(argv=None) -> int:
 
     kern = phase_kernels(torch, dev)
     main_path = phase_main(torch)
+    emit(dict(phase="main", **main_path))
+    fl_kern = phase_fl_kernels(torch, dev)
+    emit(dict(phase="fl-kernels", **fl_kern))
+    fl_main = phase_fl_main(torch)
+    emit(dict(phase="fl-main", **fl_main))
     at = next(r for r in kern["plan_stats"]
               if r["label"] == "genetic-fleet-scale")
+    fc = next(r for r in fl_kern["scatter_add"]
+              if r["label"] == "vgg16-fc r=0.01")
     kernels = [dict(
         name="plan_stats", route="cuda",
         source="src/repro_torch/kernels/csrc/sched_score.cu",
@@ -356,13 +687,21 @@ def main(argv=None) -> int:
         max_abs_err=max(r["max_abs_err"] for r in kern["plan_stats"]),
         ms=at["kernel_ms"], plain_ms=at["plain_ms"], h2d_ms=at["h2d_ms"],
         bound_ms=at["bound_ms"], bound_by=at["bound_by"], library_ms=None,
-        shapes=kern["plan_stats"])]
+        shapes=kern["plan_stats"]), dict(
+        name="scatter_add", route="cuda",
+        source="src/repro_torch/kernels/csrc/scatter_add.cu",
+        replaces="src/repro/kernels/scatter_add.py:35",
+        launches=fl_main["compressed"]["launches"],
+        max_abs_err=max(r["max_abs_err"] for r in fl_kern["scatter_add"]),
+        ms=fc["kernel_ms"], plain_ms=fc["plain_ms"],
+        bound_ms=fc["bound_ms"], bound_by=fc["bound_by"],
+        library_ms=fc["library_ms"], shapes=fl_kern["scatter_add"])]
     emit(dict(phase="kernels", kernels=kernels))
-    emit(dict(phase="main", **main_path))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            dict(device=device, kernels=kernels, main=main_path), indent=1))
+            dict(device=device, kernels=kernels, main=main_path,
+                 fl_main=fl_main), indent=1))
     print(json.dumps({"kernels": [{k: v for k, v in kr.items()
                                    if k != "shapes"} for kr in kernels]}))
     print(smi)

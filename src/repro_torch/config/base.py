@@ -1,11 +1,9 @@
-"""Typed configuration dataclasses: the part the scheduling loop uses.
+"""Typed configuration dataclasses: the part the ported paths use.
 
-``ArchFamily``, ``ModelConfig`` and ``JobConfig`` as the engine and the
-experiment spec use them. The port carries no model zoo yet (ROADMAP
-modules 6 and 10), so ``ModelConfig`` keeps only the fields that name a job
-and describe the scheduler-plane ``stub`` classifier; the reference's
-parameter counting, attention, MoE, SSM and numerics fields arrive with
-the models.
+``ArchFamily``, ``ModelConfig`` and ``JobConfig`` as the engine, the
+experiment spec and the CNN zoo (``models/cnn_zoo.py``) use them. The port
+carries the paper's CNN classifiers; the reference's language-model fields
+(attention, MoE, SSM, numerics) arrive with the LLM zoo, ROADMAP module 10.
 """
 
 from __future__ import annotations
@@ -27,7 +25,8 @@ class ArchFamily(str, enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The model a job trains, as far as the scheduling loop needs it."""
+    """The model a job trains: a CNN of the paper's zoo (or the scheduler
+    plane's ``stub``)."""
 
     name: str
     family: ArchFamily = ArchFamily.DENSE
@@ -35,6 +34,45 @@ class ModelConfig:
     cnn_spec: Tuple = ()
     input_shape: Tuple[int, ...] = ()
     num_classes: int = 0
+
+    def param_count(self) -> int:
+        if self.family != ArchFamily.CNN:
+            raise NotImplementedError(
+                f"{self.name}: language-model configs are ROADMAP module 10, "
+                "not ported yet")
+        return _cnn_param_count(self)
+
+
+def _cnn_param_count(cfg: ModelConfig) -> int:
+    """Parameter count for the CNN zoo, derived from the spec tuples."""
+    n = 0
+    c = cfg.input_shape[-1]
+    spatial = cfg.input_shape[0]
+    for layer in cfg.cnn_spec:
+        kind = layer[0]
+        if kind in ("conv", "convp"):
+            _, out_c, k = layer
+            n += k * k * c * out_c + out_c
+            c = out_c
+            if kind == "convp":
+                spatial //= 2
+        elif kind == "gn":
+            n += 2 * c
+        elif kind == "res":
+            _, out_c, stride = layer
+            n += 9 * c * out_c + out_c + 9 * out_c * out_c + out_c
+            if stride != 1 or c != out_c:
+                n += c * out_c + out_c  # 1x1 projection shortcut
+            c = out_c
+            spatial //= stride
+        elif kind == "flatten":
+            c = c * spatial * spatial
+        elif kind == "fc":
+            _, width = layer
+            n += c * width + width
+            c = width
+    n += c * cfg.num_classes + cfg.num_classes
+    return n
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,15 +16,44 @@ reference's public methods give:
 The pool's generator draws every round's realized times, so its state is
 carried beside the arrays. The schedulers of this slice have no learned
 parameters (their snapshot is the generator state); BODS rings and RLDS
-params join in ROADMAP module 5. Nothing here imports the reference.
+params join in ROADMAP module 5.
+
+A ``real_fl`` run's models cross with ``cnn_params_from_reference`` (the
+reference's CNN params, a list of dicts of numpy arrays as
+``jax.device_get`` gives them, to the port's tensors),
+``cnn_params_to_reference`` (back); ``FusedMultiRuntime.load_params(job_id,
+params)`` takes either form for one job. Nothing here imports the
+reference.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, Union
+from typing import Any, Dict, List, Union
+
+import numpy as np
+import torch
 
 from repro_torch.experiment.spec import Experiment, ExperimentSpec
+from repro_torch.tree import tree_map
+
+
+def cnn_params_from_reference(params: List[Dict[str, Any]],
+                              device: str = "cuda") -> List[Dict[str, Any]]:
+    """The reference's CNN params (numpy leaves, NHWC/HWIO as the port
+    keeps them) as float32 tensors on ``device``; values are copied
+    exactly."""
+    return tree_map(
+        lambda a: torch.as_tensor(np.array(a, np.float32), device=device),
+        params)
+
+
+def cnn_params_to_reference(params: List[Dict[str, Any]]
+                            ) -> List[Dict[str, np.ndarray]]:
+    """The port's CNN params as numpy float32 arrays, the reference's
+    layout (``jnp.asarray`` of each leaf gives its params)."""
+    return tree_map(lambda t: t.detach().cpu().numpy().astype(np.float32),
+                    params)
 
 
 def load_engine_state(spec: Union[ExperimentSpec, dict],

@@ -9,7 +9,8 @@
 strings allowed); ``--set k=v`` overrides ExperimentSpec fields on the
 materialized spec — top-level, or nested via a dotted key (``--set
 fleet.scoring_backend=cuda``). ``--device`` (default ``cuda``) is where the
-torch/cuda scoring backends run; ``--device cpu`` runs without a card.
+torch/cuda scoring backends and the ``real_fl`` runtime run; ``--device
+cpu`` runs without a card.
 Spec and result JSON written by the reference CLI load here unchanged, and
 a saved result's ``spec`` block is itself a valid input to ``run``.
 
@@ -127,8 +128,8 @@ def main(argv=None) -> None:
     p_run.add_argument("--out", help="write the ExperimentResult JSON here")
     p_run.add_argument("--verbose", action="store_true")
     p_run.add_argument("--device", default="cuda",
-                       help="where the torch/cuda scoring backends run "
-                            "(default: cuda)")
+                       help="where the torch/cuda scoring backends and "
+                            "the real_fl runtime run (default: cuda)")
     p_run.set_defaults(fn=cmd_run)
 
     p_pre = sub.add_parser("preset", help="materialize (and optionally run) "
@@ -143,8 +144,8 @@ def main(argv=None) -> None:
     p_pre.add_argument("--run", action="store_true")
     p_pre.add_argument("--verbose", action="store_true")
     p_pre.add_argument("--device", default="cuda",
-                       help="where the torch/cuda scoring backends run "
-                            "(default: cuda)")
+                       help="where the torch/cuda scoring backends and "
+                            "the real_fl runtime run (default: cuda)")
     p_pre.set_defaults(fn=cmd_preset)
 
     p_ls = sub.add_parser("list", help="list registered schedulers / "

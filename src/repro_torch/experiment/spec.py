@@ -4,9 +4,9 @@ A spec is a frozen, JSON-round-trippable description of a complete multi-job
 federated-learning experiment: the jobs, the device pool, the cost-model
 coefficients, the scheduler (by registry name) and its search backend
 (``search_backend``: only the host reference is ported), the runtime
-(``synthetic`` closed-form convergence; ``real_fl`` is ROADMAP module 6),
-the training
-execution knobs (``TrainSpec``: fused engine, cohort buckets, eval cadence),
+(``synthetic`` closed-form convergence, or ``real_fl`` training on the CNN
+zoo), the training execution knobs (``TrainSpec``: fused engine, cohort
+buckets, eval cadence),
 the fault/straggler/queueing knobs of the engine, and the ``policy`` axis
 (a policy-zoo entry, ROADMAP module 9). ``spec.build(device=...)`` wires the
 ``DevicePool -> CostModel -> calibrate -> scheduler -> runtime ->
@@ -17,14 +17,15 @@ hand; ``spec.run()`` executes it and returns an ``ExperimentResult`` whose
 All randomness is seeded from the spec (pool seed, scheduler seed, runtime
 seed, engine seed), so equal specs reproduce results bit-for-bit, and the
 numpy-driven paths reproduce the reference ``repro`` bit-for-bit. The
-device the tensor work runs on is an argument of ``build``/``run``
-(default ``"cuda"``), never a spec field, so the reference's spec and
-result JSON load here unchanged; ``from_dict`` maps its scoring backends
-``jax``/``pallas`` to ``torch``/``cuda``.
+device the tensor work runs on (scoring backends and the ``real_fl``
+runtime) is an argument of ``build``/``run`` (default ``"cuda"``), never a
+spec field, so the reference's spec and result JSON load here unchanged;
+``from_dict`` maps its scoring backends ``jax``/``pallas`` to
+``torch``/``cuda``.
 
-Axes this slice does not run raise ``NotImplementedError`` naming their
+Axes the port does not run yet raise ``NotImplementedError`` naming their
 ROADMAP module: a non-inert ``slo`` or an active ``obs`` (8), ``policy``
-(9), ``fleet.num_shards`` > 1 (7) and any model but ``stub`` (6).
+(9), ``fleet.num_shards`` > 1 (7) and the language-model arch ids (10).
 """
 
 from __future__ import annotations
@@ -60,16 +61,18 @@ def _resolve_model(job: "JobSpec") -> ModelConfig:
 
     ``stub`` is the scheduler-plane placeholder (a flatten-only classifier —
     never trained by the synthetic runtime, but it gives the engine a valid
-    config and the summary a stable key). The arch registry behind every
-    other id is ROADMAP module 6.
+    config and the summary a stable key). Any other id resolves through the
+    arch registry (``paper-lenet5``, ``paper-vgg16``, ...); the
+    language-model ids raise ``NotImplementedError`` (ROADMAP module 10).
     """
     if job.model == STUB_MODEL:
         return ModelConfig(name=job.name, family=ArchFamily.CNN,
                            cnn_spec=(("flatten",),), input_shape=(4, 4, 1),
                            num_classes=10)
-    raise NotImplementedError(
-        f"model {job.model!r}: only {STUB_MODEL!r} is ported; the model "
-        "zoo and arch registry are ROADMAP module 6")
+    from repro_torch.config.registry import get_arch
+
+    cfg = get_arch(job.model)
+    return dataclasses.replace(cfg, name=job.name)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,8 +173,8 @@ class FleetSpec:
 
 @dataclasses.dataclass(frozen=True)
 class TrainSpec:
-    """Training-runtime execution knobs of the ``real_fl`` runtime (ROADMAP
-    module 6); carried so that the reference's specs round-trip."""
+    """Training-runtime execution knobs of the ``real_fl`` runtime: fused or
+    unfused, cohort buckets, eval cadence, robust aggregation."""
 
     fused: bool = True
     buckets: Optional[Tuple[int, ...]] = None
@@ -343,7 +346,8 @@ class ExperimentSpec:
 
     def build(self, device: str = "cuda") -> "Experiment":
         """Wire pool -> cost model -> scheduler -> runtime -> engine. The
-        torch/cuda scoring backends run on ``device``."""
+        torch/cuda scoring backends and the runtime's tensor work run on
+        ``device``."""
         self.check_ported()
         jobs = [js.to_job_config(i) for i, js in enumerate(self.jobs)]
         pool_spec = self.pool
@@ -363,7 +367,7 @@ class ExperimentSpec:
             **dict(self.scheduler_kwargs)}
         scheduler = SCHEDULERS.create(self.scheduler, **sched_kwargs)
         runtime = RUNTIMES.get(self.runtime)(
-            self, jobs, pool, **dict(self.runtime_kwargs))
+            self, jobs, pool, device=str(device), **dict(self.runtime_kwargs))
         engine = MultiJobEngine(
             jobs, pool, cost_model, scheduler, runtime,
             n_sel=n_sel,

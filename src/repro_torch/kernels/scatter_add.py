@@ -1,0 +1,104 @@
+"""Weighted scatter-add (compressed FedAvg): the CUDA kernel's wrapper and
+its plain version.
+
+Per parameter leaf the server decompresses every device's top-k delta into
+one flat accumulator:
+
+    out[p] = sum over (i, j) with idx[i, j] == p of weights[i] * vals[i, j]
+
+``vals`` (n, k) f32, ``idx`` (n, k) int32/int64, ``weights`` (n,) f32 ->
+(size,) f32. A negative index is padding and is dropped, as is an index
+>= size. ``scatter_add`` launches ``csrc/scatter_add.cu`` for CUDA tensors
+and counts each launch in ``launches``; for CPU tensors it is
+``scatter_add_ref``, the plain PyTorch version. There is no fallback: a CUDA
+tensor launches the kernel or raises. The kernel sums with float atomics,
+in an order that changes from run to run, so on the card the result is not
+bitwise reproducible; it agrees with the plain version within 1e-5
+relative plus absolute.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+#: Kernel launches since the last reset (one per ``scatter_add`` call that
+#: launched; the plain version and empty inputs do not count).
+launches = 0
+
+INDEX_TYPES = (torch.int32, torch.int64)
+
+
+def scatter_add_ref(vals: torch.Tensor, idx: torch.Tensor,
+                    weights: torch.Tensor, size: int) -> torch.Tensor:
+    """Plain PyTorch version, with the reference oracle's semantics
+    (``repro/kernels/ref.py``): padding and out-of-range positions are
+    routed to one slot past the end, which is sliced off."""
+    wv = vals.to(torch.float32) * weights.to(torch.float32)[:, None]
+    flat = idx.reshape(-1).long()
+    flat = torch.where((flat < 0) | (flat >= size), size, flat)
+    out = torch.zeros(size + 1, dtype=torch.float32, device=vals.device)
+    out.index_put_((flat,), wv.reshape(-1), accumulate=True)
+    return out[:size]
+
+
+def _check(vals, idx, weights, size):
+    if vals.dim() != 2 or vals.dtype != torch.float32:
+        raise TypeError(f"vals must be an (n, k) float32 tensor, got "
+                        f"{tuple(vals.shape)} {vals.dtype}")
+    if tuple(idx.shape) != tuple(vals.shape) or idx.dtype not in INDEX_TYPES:
+        raise TypeError(f"idx must be a {tuple(vals.shape)} int32/int64 "
+                        f"tensor, got {tuple(idx.shape)} {idx.dtype}")
+    n = vals.shape[0]
+    if tuple(weights.shape) != (n,) or weights.dtype != torch.float32:
+        raise TypeError(f"weights must be a ({n},) float32 tensor, got "
+                        f"{tuple(weights.shape)} {weights.dtype}")
+    if size < 1:
+        raise ValueError(f"size must be >= 1, got {size}")
+
+
+def _entry():
+    """The kernel's C entry point, built and typed at first use."""
+    from repro_torch.kernels import build
+
+    fn = build.load("scatter_add").fl_scatter_add
+    if fn.argtypes is None:  # ints would pass as 32-bit, cutting pointers
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p] + [
+            ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def scatter_add(vals: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
+                size: int) -> torch.Tensor:
+    """(n, k) f32 vals, (n, k) int32/int64 idx, (n,) f32 weights -> (size,)
+    f32 (see module docstring). CUDA tensors launch the kernel; CPU tensors
+    take ``scatter_add_ref``; a mix raises."""
+    global launches
+    size = int(size)
+    _check(vals, idx, weights, size)
+    devices = {vals.device, idx.device, weights.device}
+    if len(devices) != 1:
+        raise ValueError(f"scatter_add inputs on several devices: {devices}")
+    if vals.device.type == "cpu":
+        return scatter_add_ref(vals, idx, weights, size)
+    if vals.device.type != "cuda":
+        raise ValueError(f"scatter_add has no kernel for {vals.device}")
+    for name, x in (("vals", vals), ("idx", idx), ("weights", weights)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    n, k = vals.shape
+    out = torch.zeros(size, dtype=torch.float32, device=vals.device)
+    if n * k == 0:
+        return out
+    fn = _entry()
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    rc = fn(vals.data_ptr(), idx.data_ptr(), idx.element_size(),
+            weights.data_ptr(), out.data_ptr(), n, k, size, stream)
+    if rc != 0:
+        raise RuntimeError(f"scatter_add kernel launch failed: CUDA error "
+                           f"{rc} at (n, k, size) = ({n}, {k}, {size})")
+    launches += 1
+    return out

@@ -23,11 +23,21 @@ from repro.experiment import presets as ref_presets  # noqa: E402
 from repro.experiment.spec import ExperimentResult as RefResult  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.experiment import presets  # noqa: E402
-from repro_torch.experiment.spec import ExperimentSpec  # noqa: E402
+from repro_torch.experiment.spec import ExperimentSpec, JobSpec  # noqa: E402
 
 SCHEDULERS = ("random", "greedy", "fedcs", "genetic", "sa")
 PRESETS = ("quickstart", "paper-group-a", "paper-group-b", "fault-injection")
 SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs several test files at once, and
+    the timing-sensitive tests of other files must not be starved."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def shorten(spec, max_rounds):
@@ -164,7 +174,8 @@ def test_reference_result_json_replays(tmp_path):
     (dict(fleet={"num_shards": 2}), "module 7"),
     (dict(scheduler="bods"), "module 5"),
     (dict(scheduler="genetic", search_backend="fused"), "module 5"),
-    (dict(runtime="real_fl"), "module 6"),
+    (dict(runtime="real_fl", jobs=(JobSpec(name="lm", model="qwen3-8b"),)),
+     "module 10"),
 ])
 def test_axes_not_ported_raise(change, module):
     spec = presets.get_preset("quickstart", scheduler="greedy").replace(
@@ -174,9 +185,15 @@ def test_axes_not_ported_raise(change, module):
 
 
 def test_model_other_than_stub_raises():
+    """Only the language-model arch ids still raise (ROADMAP module 10); the
+    paper's CNN zoo builds and trains (tests/test_torch_runtime.py)."""
     spec = presets.get_preset("real-fl-two-job", scheduler="greedy")
-    with pytest.raises(NotImplementedError, match="module 6"):
-        spec.build(device="cpu")
+    exp = spec.build(device="cpu")
+    names = [j.config.model.name for j in exp.engine.jobs]
+    assert names == ["paper-lenet5", "paper-cnn-b"]
+    lm = spec.replace(jobs=(JobSpec(name="lm", model="qwen3-8b"),))
+    with pytest.raises(NotImplementedError, match="module 10"):
+        lm.build(device="cpu")
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -185,6 +202,12 @@ def test_port_imports_neither_jax_nor_reference():
         "from repro_torch.experiment.presets import get_preset\n"
         "import repro_torch.convert, repro_torch.experiment.cli\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+        "import repro_torch.fl, repro_torch.models.cnn_zoo\n"
+        "import repro_torch.optim.compression, repro_torch.configs\n"
+        "r2 = get_preset('real-fl-two-job', scheduler='greedy', rounds=1,"
+        " num_devices=10).replace(runtime_kwargs={'samples_per_job': 400,"
+        " 'eval_samples': 40}).run(device='cpu')\n"
+        "assert len(r2.records) == 2, len(r2.records)\n"
         "r = get_preset('quickstart', scheduler='genetic', max_rounds=2)"
         ".replace(search_backend='host', scoring_backend='cuda')"
         ".run(device='cpu')\n"
