@@ -45,6 +45,32 @@ non-zero with a traceback, and no phase's failure is caught.
    first-round loss at group A's lr of 0.05 and at 0.01 is recorded beside
    the lr the job runs at (``VGG16_LR``).
 
+6. lm-kernels — flash attention (prefill) and decode attention against
+   their plain PyTorch versions on the card, in bf16 (the working type) and
+   f32, within the reference's tolerances (2e-5 in f32; 2e-2 flash and
+   3e-2 decode in bf16), and each bf16 output also held tightly to the
+   plain version run in f32 on the same bf16 inputs (every output row
+   within ``BF16_ROW_RTOL`` of its own norm): qwen3-1.7b's prefill (B = 2, S = 4096, causal)
+   and one long context (S = 16,384); qwen3-1.7b's decode (16 slots, T =
+   4096) and one layer at the decode_32k shape (B = 128, T = 32,768, bf16
+   only: its caches are 17.2 GB); MQA, MHA, G = 4 and G = 16, D = 64 and
+   256, S and T that are not powers of two, lengths 0, 1 and T with rows
+   past each length poisoned, a 1024 sliding window and non-causal. Times
+   of the kernel, the plain version and one ``scaled_dot_product_attention``
+   call (the library yardstick, never called by the port), beside the
+   bound; the flash autograd.Function's gradient against the plain one.
+7. lm-serve — qwen3-1.7b at full width (28 layers, random weights from
+   seed 0) through the port's entry points on the card: ``lm_init``, one
+   ``make_prefill_step`` call on (2, 4096) tokens (flash launches exactly
+   28 times), the ``launch/serve.py`` loop (32 requests, 16 slots, 32 new
+   tokens, a 4096-row cache; decode launches 28 times per step; every
+   request answered), one timed decode step at a cache of about 4000 rows
+   (it and one prefill call split by ``torch.profiler`` into device busy
+   time per kernel class and the device's idle share), and the whole model against itself under ``ops.set_default_impl("ref")``
+   (f32 config: logits within ``MODEL_F32_RTOL`` of the largest; bf16:
+   within ``MODEL_BF16_RTOL`` of the largest, and at least
+   ``MODEL_BF16_GREEDY`` of the greedy tokens identical).
+
 The line before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
 them; the last line is ``{"ok": true, "device": {...}}``.
@@ -634,6 +660,514 @@ def phase_fl_main(torch) -> dict:
                         kernel_ms=kernel_ms))
 
 
+# ---- phase 6 -------------------------------------------------------------
+
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 3e-2)}  # flash, decode
+QWEN = dict(H=16, KV=8, D=128)  # qwen3-1.7b's attention
+
+
+def tdtype(torch, name):
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def attn_close(got, exp, tol, what: str) -> float:
+    """max |got - exp|, failing unless |got - exp| <= tol * (1 + |exp|)
+    (the reference tests' atol = rtol = tol)."""
+    got, exp = got.float(), exp.float()
+    err = (got - exp).abs()
+    if not bool(got.isfinite().all()) or not bool(
+            (err <= tol * (1.0 + exp.abs())).all()):
+        raise AssertionError(f"{what}: off by {float(err.max())} "
+                             f"(tolerance {tol})")
+    return float(err.max()) if err.numel() else 0.0
+
+
+# The bf16 kernels held tightly: the plain version run in f32 on the same
+# bf16-rounded inputs is the yardstick, and each output row (D values) must
+# lie within BF16_ROW_RTOL of it in the row's own L2 norm. Rounding p and
+# the output to bf16, as the kernels do over f32 logits, costs at most
+# 4e-3 of a row in a CPU emulation at (1, 2048) causal; the plain bf16
+# version, which also rounds its logits to bf16, reaches 1e-2. One key
+# tile of 64 left out of a 4096-key row costs about 0.12.
+BF16_ROW_RTOL = 1e-2
+
+
+def bf16_row_err(torch, got, plain, args, what: str, chunk: int) -> float:
+    """Largest ||got - plain_f32|| / ||plain_f32|| over the output rows,
+    failing above BF16_ROW_RTOL. ``plain`` runs on the f32 copies of
+    ``args``' floating tensors, ``chunk`` batch entries at a time."""
+    worst = 0.0
+    for b0 in range(0, got.shape[0], chunk):
+        part = [a[b0:b0 + chunk].float() if a.is_floating_point()
+                else a[b0:b0 + chunk] for a in args]
+        exp = plain(*part).float()
+        del part
+        err = (got[b0:b0 + chunk].float() - exp).norm(dim=-1)
+        rel = err / exp.norm(dim=-1).clamp_min(1e-30)
+        worst = max(worst, float(rel.max()))
+        del exp, err, rel
+    if not worst <= BF16_ROW_RTOL:
+        raise AssertionError(f"{what}: a row is off by {worst} of its norm "
+                             f"against the f32 plain version (limit "
+                             f"{BF16_ROW_RTOL})")
+    return worst
+
+
+def attn_bound(nbytes: float, ops: float, dtype: str):
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_pairs(S: int, causal: bool, window) -> int:
+    """Unmasked (query, key) pairs of one (batch, head)."""
+    import numpy as np
+
+    i = np.arange(S, dtype=np.int64)
+    hi = i if causal else np.full(S, S - 1, np.int64)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(S, np.int64)
+    return int((hi - lo + 1).sum())
+
+
+FLASH_CASES = [
+    # label, B, S, H, KV, D, causal, window, dtypes, main
+    ("qwen3-1.7b prefill", 2, 4096, 16, 8, 128, True, None,
+     ("bfloat16", "float32"), True),
+    ("long-context", 1, 16384, 16, 8, 128, True, None, ("bfloat16",), True),
+    ("MQA KV=1, S=1000", 2, 1000, 8, 1, 128, True, None,
+     ("bfloat16", "float32"), False),
+    ("MHA KV=H, S=777", 1, 777, 8, 8, 128, True, None,
+     ("bfloat16", "float32"), False),
+    ("G=4 (qwen3-8b)", 1, 2048, 32, 8, 128, True, None, ("bfloat16",), False),
+    ("G=16 (glm4-9b)", 1, 1024, 32, 2, 128, True, None,
+     ("bfloat16", "float32"), False),
+    ("window 1024, 25/5 heads, D=64 (hymba)", 1, 3000, 25, 5, 64, True, 1024,
+     ("bfloat16", "float32"), False),
+    ("D=256, S=1000", 1, 1000, 8, 4, 256, True, None,
+     ("bfloat16", "float32"), False),
+    ("non-causal", 2, 500, 16, 8, 128, False, None, ("bfloat16", "float32"),
+     False),
+]
+
+def decode_cases():
+    """label, B, H, KV, D, T, lengths ("spread" | "edges"), dtypes, main."""
+    from repro_torch.config.shapes import SHAPES
+
+    d32 = SHAPES["decode_32k"]
+    return [
+        ("qwen3-1.7b 16 slots", 16, 16, 8, 128, 4096, "spread",
+         ("bfloat16", "float32"), True),
+        ("decode_32k layer", d32.global_batch, 16, 8, 128, d32.seq_len,
+         "spread", ("bfloat16",), True),
+        ("MQA KV=1, T=1000", 3, 8, 1, 128, 1000, "edges",
+         ("bfloat16", "float32"), False),
+        ("MHA KV=H, T=777", 3, 8, 8, 128, 777, "edges",
+         ("bfloat16", "float32"), False),
+        ("G=4 (qwen3-8b)", 4, 32, 8, 128, 2048, "edges", ("bfloat16",), False),
+        ("G=16 (glm4-9b)", 4, 32, 2, 128, 1500, "edges",
+         ("bfloat16", "float32"), False),
+        ("25/5 heads, D=64, T=1024 ring (hymba)", 3, 25, 5, 64, 1024,
+         "edges", ("bfloat16", "float32"), False),
+        ("D=256, T=900", 3, 8, 4, 256, 900, "edges", ("bfloat16", "float32"),
+         False),
+    ]
+
+
+def decode_lengths(torch, dev, B, T, kind, g):
+    if kind == "spread":  # evenly over [1, T], shuffled
+        lin = torch.linspace(1, T, B, device=dev).round().int()
+        return lin[torch.randperm(B, device=dev, generator=g)].contiguous()
+    base = torch.tensor([0, 1, T], dtype=torch.int32, device=dev)
+    extra = torch.randint(2, T, (max(B - 3, 0),), device=dev, generator=g)
+    return torch.cat([base, extra.int()])[:B].contiguous()
+
+
+def sdpa_decode(torch, q, k, v, length):
+    """The library yardstick: one scaled_dot_product_attention call, the G
+    query heads of a kv-head as G query rows against its cache, with a
+    boolean length mask."""
+    import torch.nn.functional as F
+
+    B, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    mask = (torch.arange(T, device=q.device)[None, :]
+            < length[:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(
+        q.view(B, KV, H // KV, D), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask)
+
+
+def phase_lm_kernels(torch, dev) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(1300)
+    flash_rows, decode_rows = [], []
+    for label, B, S, H, KV, D, causal, window, dtypes, main in FLASH_CASES:
+        for dname in dtypes:
+            dt = tdtype(torch, dname)
+            q = torch.randn((B, S, H, D), device=dev, generator=g, dtype=dt)
+            k = torch.randn((B, S, KV, D), device=dev, generator=g, dtype=dt)
+            v = torch.randn((B, S, KV, D), device=dev, generator=g, dtype=dt)
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            exp = fa.attention_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err = attn_close(got, exp, ATTN_TOL[dname][0],
+                             f"flash {label} {dname}")
+            del exp
+            row_err = None
+            if dname == "bfloat16":
+                row_err = bf16_row_err(
+                    torch, got, lambda *a: fa.attention_ref(
+                        *a, causal=causal, window=window), (q, k, v),
+                    f"flash {label} {dname}", chunk=B)
+            del got
+            big = B * S >= 8192
+            kernel_ms = cuda_time_ms(
+                torch, lambda: fa.flash_attention(q, k, v, causal, window),
+                inner=3 if big else 10, reps=5)
+            plain_ms = cuda_time_ms(
+                torch, lambda: fa.attention_ref(q, k, v, causal, window),
+                inner=1 if big else 3, reps=3)
+            library_ms = None
+            if window is None:  # SDPA has no window argument
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                library_ms = cuda_time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, enable_gqa=True),
+                    inner=3 if big else 10, reps=5)
+            pairs = flash_pairs(S, causal, window)
+            nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * \
+                k.element_size()
+            bound_ms, bound_by = attn_bound(nbytes, 4 * D * pairs * H * B,
+                                            dname)
+            flash_rows.append(dict(
+                label=label, dtype=dname, main=main,
+                shape=[B, S, H, KV, D], causal=causal, window=window,
+                max_abs_err=err, bf16_row_err_vs_f32=row_err,
+                kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                pairs=pairs * B * H))
+            del q, k, v
+            torch.cuda.empty_cache()
+    for label, B, H, KV, D, T, kind, dtypes, main in decode_cases():
+        for dname in dtypes:
+            dt = tdtype(torch, dname)
+            q = torch.randn((B, H, D), device=dev, generator=g, dtype=dt)
+            k = torch.randn((B, T, KV, D), device=dev, generator=g, dtype=dt)
+            v = torch.randn((B, T, KV, D), device=dev, generator=g, dtype=dt)
+            length = decode_lengths(torch, dev, B, T, kind, g)
+            got = da.decode_attention(q, k, v, length)
+            exp = da.decode_attention_ref(q, k, v, length)
+            torch.cuda.synchronize()
+            tol = ATTN_TOL[dname][1]
+            err = attn_close(got, exp, tol, f"decode {label} {dname}")
+            del exp
+            row_err = None
+            if dname == "bfloat16":  # 16 sequences at a time: f32 copies
+                row_err = bf16_row_err(
+                    torch, got, da.decode_attention_ref, (q, k, v, length),
+                    f"decode {label} {dname}", chunk=16)
+            poisoned = False
+            if not main:  # rows past each length must not matter
+                for b, n in enumerate(length.tolist()):
+                    if 0 < n < T:
+                        k[b, n:] = 1e4
+                        v[b, n:] = float("nan")
+                        poisoned = True
+                again = da.decode_attention(q, k, v, length)
+                if not torch.equal(again, got):
+                    raise AssertionError(f"decode {label} {dname}: rows past "
+                                         "the length changed the output")
+                del again
+            del got
+            big = B * T >= 10 ** 6
+            kernel_ms = cuda_time_ms(
+                torch, lambda: da.decode_attention(q, k, v, length),
+                inner=5 if big else 20, reps=5)
+            plain_ms = library_ms = None
+            if not poisoned:
+                plain_ms = cuda_time_ms(
+                    torch, lambda: da.decode_attention_ref(q, k, v, length),
+                    inner=1 if big else 5, reps=3)
+                library_ms = cuda_time_ms(
+                    torch, lambda: sdpa_decode(torch, q, k, v, length),
+                    inner=2 if big else 10, reps=3)
+            rows = sum(min(n, T) if n > 0 else T for n in length.tolist())
+            nbytes = (2 * rows * KV * D + 2 * B * H * D) * k.element_size()
+            bound_ms, bound_by = attn_bound(nbytes, 4 * D * H * rows, dname)
+            decode_rows.append(dict(
+                label=label, dtype=dname, main=main, shape=[B, H, KV, D, T],
+                lengths=kind, max_abs_err=err, bf16_row_err_vs_f32=row_err,
+                kernel_ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, cache_rows_read=rows))
+            del q, k, v, length
+            torch.cuda.empty_cache()
+    grad = flash_grad_check(torch, dev)
+    return {"flash_attention": flash_rows, "decode_attention": decode_rows,
+            "flash_grad_max_abs_err": grad}
+
+
+def flash_grad_check(torch, dev) -> float:
+    """The autograd.Function's gradient (kernel forward, plain backward)
+    against the plain version's autograd, within 5e-4."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(1301)
+    leaves = [torch.randn(s, device=dev, generator=g).requires_grad_()
+              for s in ((2, 256, 8, 64), (2, 256, 2, 64), (2, 256, 2, 64))]
+    (fa.flash_attention(*leaves) ** 2).sum().backward()
+    plain = [t.detach().clone().requires_grad_() for t in leaves]
+    (fa.attention_ref(*plain) ** 2).sum().backward()
+    return max(attn_close(a.grad, b.grad, 5e-4, "flash gradient")
+               for a, b in zip(leaves, plain))
+
+
+# ---- phase 7 -------------------------------------------------------------
+
+SERVE = dict(requests=32, slots=16, max_new=32, cache_len=4096)
+PREFILL = (2, 4096)            # (B, S) of the prefill call
+LONG_CACHE = 4000              # lengths of the timed long-cache decode step
+# The whole f32 model, kernels against plain versions: each kernel is held
+# to 2e-5 of its plain version, and 28 layers of residual stream carry that
+# forward; logits are held to 1e-3 of the largest |logit|.
+MODEL_F32_RTOL = 1e-3
+# bf16: each op rounds its output (2^-8 relative) through 28 layers, and
+# the two paths round p after differing sums; the gap was 0.14 on logits
+# up to 15.2 (0.9%) with every greedy token the same, on the NVIDIA H100.
+MODEL_BF16_RTOL = 3e-2
+MODEL_BF16_GREEDY = 0.9
+
+
+def filled_state(torch, dev, cfg, B, T, seed):
+    from repro_torch.models.transformer import init_decode_state
+
+    state = init_decode_state(cfg, B, T, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for t in state["kv"].values():
+        for i in range(t.shape[0]):  # one layer at a time: no f32 temporary
+            t[i].copy_(torch.randn(t[i].shape, device=dev, generator=g))
+    return state
+
+
+def kernel_class(name: str) -> str:
+    if "flash_mma_kernel" in name or "flash_f32_kernel" in name:
+        return "flash_attention"
+    if "decode_kernel" in name or "combine_kernel" in name:
+        return "decode_attention"
+    if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "nvjet",
+                                       "gemv")):
+        return "matmul"
+    return "other"
+
+
+def device_split(torch, fn, calls: int) -> dict:
+    """``calls`` calls of ``fn`` under torch.profiler: host wall time (ending
+    in a synchronise), the device's busy time (the union of its kernel and
+    copy intervals), the idle share, and device ms per kernel class."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, by_class, launches = [], {}, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        cls = kernel_class(e.name)
+        by_class[cls] = by_class.get(cls, 0.0) + (end - start) / 1e3
+        launches += 1
+    busy_us, last = 0.0, None
+    for start, end in sorted(spans):
+        if last is None or start > last:
+            busy_us += end - start
+            last = end
+        elif end > last:
+            busy_us += end - last
+            last = end
+    busy_ms = busy_us / 1e3
+    return dict(calls=calls, wall_ms=wall_ms, device_events=launches,
+                device_busy_ms=busy_ms if spans else None,
+                device_idle_share=(1.0 - busy_ms / wall_ms) if spans else None,
+                device_ms_by_class={k: v for k, v in sorted(
+                    by_class.items(), key=lambda kv: -kv[1])})
+
+
+def logits_agree(torch, got, exp):
+    got, exp = got.float(), exp.float()
+    return dict(max_abs_err=float((got - exp).abs().max()),
+                max_abs_logit=float(exp.abs().max()),
+                greedy_same=float((got.argmax(-1) == exp.argmax(-1))
+                                  .float().mean()))
+
+
+def phase_lm_serve(torch, dev) -> dict:
+    from repro_torch.config.registry import get_arch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.transformer import compute_params, lm_init
+
+    cfg = get_arch("qwen3-1.7b")
+    t0 = time.perf_counter()
+    params = lm_init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cparams = compute_params(cfg, params)
+    L = cfg.num_layers
+    g = torch.Generator(device=dev).manual_seed(1400)
+    prefill = make_prefill_step(cfg)
+    B, S = PREFILL
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                         generator=g)
+    # warm-up (first-use costs), not counted
+    prefill(cparams, {"tokens": toks[:1, :256]})
+    serve(cfg, cparams, requests=2, slots=2, max_new=2, cache_len=64,
+          device=dev)
+
+    # The main path, with both counts at 0 just before and read just after.
+    fa.launches = da.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = prefill(cparams, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    flash_launches = fa.launches
+    res = serve(cfg, cparams, device=dev, **SERVE)
+    decode_launches, flash_after = da.launches, fa.launches
+    if flash_launches != L or flash_after != L:
+        raise AssertionError(f"flash launched {flash_launches} times in one "
+                             f"prefill call, expected {L}")
+    if decode_launches != L * res.steps:
+        raise AssertionError(f"decode launched {decode_launches} times in "
+                             f"{res.steps} steps, expected {L} per step")
+    if len(res.tokens) != SERVE["requests"] or any(
+            len(t) != SERVE["max_new"] for t in res.tokens):
+        raise AssertionError("a request was not answered in full")
+    if not all(0 <= x < cfg.vocab_size for t in res.tokens for x in t):
+        raise AssertionError("token id out of the vocabulary")
+    if tuple(logits.shape) != (B, S, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits malformed")
+    del logits
+    prefill_ms = [cuda_time_ms(torch, lambda: prefill(cparams,
+                                                      {"tokens": toks}),
+                               inner=1, reps=3, hide_host=False)]
+
+    # One timed decode step at a long cache (lengths about 4000).
+    state = filled_state(torch, dev, cfg, SERVE["slots"], SERVE["cache_len"],
+                         1401)
+    lengths = (LONG_CACHE + torch.arange(SERVE["slots"], device=dev)).int()
+    step_toks = torch.randint(0, cfg.vocab_size, (SERVE["slots"],),
+                              device=dev, generator=g).int()
+    step = make_serve_step(cfg)
+    long_ms = cuda_time_ms(torch, lambda: step(cparams, state, step_toks,
+                                               lengths),
+                           inner=5, reps=3, hide_host=False)
+    # Where a step's and a prefill call's time goes (profiler, after the
+    # timed runs).
+    step_split = device_split(
+        torch, lambda: step(cparams, state, step_toks, lengths), calls=3)
+    prefill_split = device_split(
+        torch, lambda: prefill(cparams, {"tokens": toks}), calls=1)
+    del state
+
+    # The whole model under ops.set_default_impl("ref") on the same inputs.
+    import dataclasses
+
+    def both(fn):
+        got = fn()
+        ops.set_default_impl("ref")
+        try:
+            exp = fn()
+        finally:
+            ops.set_default_impl("cuda")
+        return got, exp
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    short = toks[:1, :2048]
+    got, exp = both(lambda: make_prefill_step(cfg32)(params,
+                                                     {"tokens": short}))
+    f32_prefill = logits_agree(torch, got, exp)
+    del got, exp
+    st32 = filled_state(torch, dev, cfg32, 4, 1024, 1402)
+    len32 = torch.tensor([1, 300, 777, 1024], dtype=torch.int32, device=dev)
+    tok32 = torch.randint(0, cfg.vocab_size, (4,), device=dev,
+                          generator=g).int()
+    st_ref = {"kv": {n: t.clone() for n, t in st32["kv"].items()}}
+    got = make_serve_step(cfg32)(params, st32, tok32, len32)[0]
+    ops.set_default_impl("ref")
+    try:
+        exp = make_serve_step(cfg32)(params, st_ref, tok32, len32)[0]
+    finally:
+        ops.set_default_impl("cuda")
+    f32_decode = logits_agree(torch, got, exp)
+    del st32, st_ref, got, exp
+    for name, d in (("f32 prefill", f32_prefill), ("f32 decode", f32_decode)):
+        if not d["max_abs_err"] <= MODEL_F32_RTOL * d["max_abs_logit"]:
+            raise AssertionError(f"{name}: kernels and plain versions differ "
+                                 f"by {d['max_abs_err']} (largest logit "
+                                 f"{d['max_abs_logit']})")
+    got, exp = both(lambda: prefill(cparams, {"tokens": toks}))
+    bf16_prefill = logits_agree(torch, got, exp)
+    del got, exp
+    stb = filled_state(torch, dev, cfg, SERVE["slots"], SERVE["cache_len"],
+                       1403)
+    stb_ref = {"kv": {n: t.clone() for n, t in stb["kv"].items()}}
+    got = step(cparams, stb, step_toks, lengths)[0]
+    ops.set_default_impl("ref")
+    try:
+        exp = step(cparams, stb_ref, step_toks, lengths)[0]
+    finally:
+        ops.set_default_impl("cuda")
+    bf16_decode = logits_agree(torch, got, exp)
+    del stb, stb_ref, got, exp
+    for name, d in (("bf16 prefill", bf16_prefill),
+                    ("bf16 decode", bf16_decode)):
+        if not (d["max_abs_err"] <= MODEL_BF16_RTOL * d["max_abs_logit"]
+                and d["greedy_same"] >= MODEL_BF16_GREEDY):
+            raise AssertionError(f"{name}: kernels and plain versions differ "
+                                 f"by {d['max_abs_err']} (largest logit "
+                                 f"{d['max_abs_logit']}), greedy tokens the "
+                                 f"same at {d['greedy_same']}")
+    torch.cuda.empty_cache()
+    served = sum(len(t) for t in res.tokens)
+    return dict(
+        arch=cfg.name, params=cfg.param_count(), init_s=init_s,
+        prefill=dict(batch=B, seq=S, first_call_s=prefill_s,
+                     ms=prefill_ms[0],
+                     tokens_per_s=B * S / (prefill_ms[0] / 1e3),
+                     flash_launches=flash_launches),
+        serve=dict(SERVE, steps=res.steps, tokens=served, wall_s=res.seconds,
+                   tokens_per_s=served / res.seconds,
+                   ms_per_step=res.seconds / res.steps * 1e3,
+                   decode_launches=decode_launches,
+                   decode_launches_per_step=decode_launches / res.steps),
+        long_cache_step=dict(slots=SERVE["slots"], lengths=LONG_CACHE,
+                             ms=long_ms, profile=step_split),
+        prefill_profile=prefill_split,
+        f32_vs_plain=dict(prefill=f32_prefill, decode=f32_decode,
+                          rtol=MODEL_F32_RTOL),
+        bf16_vs_plain=dict(prefill=bf16_prefill, decode=bf16_decode,
+                           rtol=MODEL_BF16_RTOL,
+                           min_greedy_same=MODEL_BF16_GREEDY))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's details here")
@@ -675,6 +1209,10 @@ def main(argv=None) -> int:
     emit(dict(phase="fl-kernels", **fl_kern))
     fl_main = phase_fl_main(torch)
     emit(dict(phase="fl-main", **fl_main))
+    lm_kern = phase_lm_kernels(torch, dev)
+    emit(dict(phase="lm-kernels", **lm_kern))
+    lm_serve = phase_lm_serve(torch, dev)
+    emit(dict(phase="lm-serve", **lm_serve))
     at = next(r for r in kern["plan_stats"]
               if r["label"] == "genetic-fleet-scale")
     fc = next(r for r in fl_kern["scatter_add"]
@@ -696,12 +1234,30 @@ def main(argv=None) -> int:
         ms=fc["kernel_ms"], plain_ms=fc["plain_ms"],
         bound_ms=fc["bound_ms"], bound_by=fc["bound_by"],
         library_ms=fc["library_ms"], shapes=fl_kern["scatter_add"])]
+    for name, cu, line, label, launches in (
+            ("flash_attention", "flash_attention.cu", "flash_attention.py:35",
+             "qwen3-1.7b prefill", lm_serve["prefill"]["flash_launches"]),
+            ("decode_attention", "decode_attention.cu",
+             "decode_attention.py:22", "qwen3-1.7b 16 slots",
+             lm_serve["serve"]["decode_launches"])):
+        rows = lm_kern[name]
+        at = next(r for r in rows
+                  if r["label"] == label and r["dtype"] == "bfloat16")
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{cu}",
+            replaces=f"src/repro/kernels/{line}", launches=launches,
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=at["kernel_ms"], plain_ms=at["plain_ms"],
+            bound_ms=at["bound_ms"], bound_by=at["bound_by"],
+            library_ms=at["library_ms"], shapes=rows))
     emit(dict(phase="kernels", kernels=kernels))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(device=device, kernels=kernels, main=main_path,
-                 fl_main=fl_main), indent=1))
+                 fl_main=fl_main, lm_kernels=lm_kern, lm_serve=lm_serve),
+            indent=1))
     print(json.dumps({"kernels": [{k: v for k, v in kr.items()
                                    if k != "shapes"} for kr in kernels]}))
     print(smi)

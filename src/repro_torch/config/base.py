@@ -1,9 +1,11 @@
 """Typed configuration dataclasses: the part the ported paths use.
 
-``ArchFamily``, ``ModelConfig`` and ``JobConfig`` as the engine, the
-experiment spec and the CNN zoo (``models/cnn_zoo.py``) use them. The port
-carries the paper's CNN classifiers; the reference's language-model fields
-(attention, MoE, SSM, numerics) arrive with the LLM zoo, ROADMAP module 10.
+``ArchFamily``, ``AttentionKind``, ``ModelConfig``, ``ShapeConfig`` and
+``JobConfig``, as the engine, the experiment spec, the CNN zoo
+(``models/cnn_zoo.py``) and the LLM zoo (``models/transformer.py``) use
+them. ``ModelConfig`` carries every field of the reference's, so each
+architecture family's ``param_count`` is the reference's arithmetic; the
+LLM zoo itself runs the dense family (the others are ROADMAP module 10).
 """
 
 from __future__ import annotations
@@ -23,24 +25,115 @@ class ArchFamily(str, enum.Enum):
     CNN = "cnn"  # paper-plane classifiers
 
 
+class AttentionKind(str, enum.Enum):
+    FULL = "full"          # full causal attention (quadratic)
+    SLIDING = "sliding"    # sliding-window attention (sub-quadratic)
+    NONE = "none"          # attention-free (pure SSM/recurrent)
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The model a job trains: a CNN of the paper's zoo (or the scheduler
-    plane's ``stub``)."""
+    """Architecture hyperparameters (decoder-only LM backbone unless
+    family=CNN)."""
 
     name: str
     family: ArchFamily = ArchFamily.DENSE
+
+    # Transformer backbone.
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: int = 0  # 0 -> d_model // num_heads
+    qk_norm: bool = False
+    mlp_kind: str = "swiglu"  # swiglu | geglu | gelu
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+
+    # Attention behaviour.
+    attention: AttentionKind = AttentionKind.FULL
+    sliding_window: int = 4096  # used when attention == SLIDING
+
+    # MoE.
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_dense_first_n: int = 0   # leading dense layers before MoE blocks
+    num_shared_experts: int = 0
+
+    # SSM / recurrent.
+    ssm_state: int = 0           # per-head SSM state width
+    ssm_conv_width: int = 4
+    ssm_expand: int = 2
+    slstm_every: int = 0         # xLSTM: every n-th block is sLSTM (0 = none)
+
+    # Hybrid (parallel attention + SSM heads, Hymba-style).
+    hybrid_parallel: bool = False
+
+    # Modality frontend stubs (precomputed embeddings).
+    frontend_tokens: int = 0
+    frontend_dim: int = 0
+
     # CNN-family (paper plane) description: sequence of layer specs.
     cnn_spec: Tuple = ()
     input_shape: Tuple[int, ...] = ()
     num_classes: int = 0
 
-    def param_count(self) -> int:
+    # Numerics / memory policy.
+    dtype: str = "bfloat16"          # activation/compute dtype
+    param_dtype: str = "float32"     # parameter storage dtype
+    remat: bool = True               # checkpoint at block boundaries
+
+    def __post_init__(self):
         if self.family != ArchFamily.CNN:
-            raise NotImplementedError(
-                f"{self.name}: language-model configs are ROADMAP module 10, "
-                "not ported yet")
-        return _cnn_param_count(self)
+            if self.d_model <= 0 or self.num_layers <= 0:
+                raise ValueError(f"{self.name}: a language model needs "
+                                 "d_model > 0 and num_layers > 0")
+            if self.num_heads:
+                hd = self.head_dim or self.d_model // self.num_heads
+                object.__setattr__(self, "head_dim", hd)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    def param_count(self) -> int:
+        if self.family == ArchFamily.CNN:
+            return _cnn_param_count(self)
+        d, h, kv, hd, f = (self.d_model, self.num_heads, self.num_kv_heads,
+                           self.head_dim, self.d_ff)
+        attn = d * h * hd + 2 * d * kv * hd + h * hd * d  # q, k+v, o
+        if self.qk_norm:
+            attn += 2 * hd
+        per_layer = attn + 2 * d  # two norms
+        if self.is_moe:
+            moe_layers = self.num_layers - self.moe_dense_first_n
+            dense_layers = self.moe_dense_first_n
+            expert_ff = 3 * d * f  # gate/up/down (SwiGLU)
+            per_moe = (attn + 2 * d + self.num_experts * expert_ff
+                       + d * self.num_experts)
+            per_moe += self.num_shared_experts * expert_ff
+            dense_f = f if dense_layers else 0
+            per_dense = attn + 2 * d + 3 * d * (dense_f or f)
+            body = moe_layers * per_moe + dense_layers * per_dense
+        elif self.family == ArchFamily.SSM:
+            inner = self.ssm_expand * d
+            per_layer = 2 * d + 3 * d * inner + inner * d + 4 * inner
+            body = self.num_layers * per_layer
+        elif self.family == ArchFamily.HYBRID:
+            inner = self.ssm_expand * d
+            ssm = 2 * d * inner + inner * (self.ssm_state * 2 + 1) + inner * d
+            per_layer = attn + ssm + 2 * d + 3 * d * f
+            body = self.num_layers * per_layer
+        else:
+            mlp_mats = 2 if self.mlp_kind == "gelu" else 3
+            per_layer += mlp_mats * d * f
+            body = self.num_layers * per_layer
+        emb = self.vocab_size * d
+        out = 0 if self.tie_embeddings else self.vocab_size * d
+        return body + emb + out + d  # final norm
 
 
 def _cnn_param_count(cfg: ModelConfig) -> int:
@@ -73,6 +166,20 @@ def _cnn_param_count(cfg: ModelConfig) -> int:
             c = width
     n += c * cfg.num_classes + cfg.num_classes
     return n
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """An input-shape cell: (seq_len, global_batch, mode)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,7 +22,10 @@ A ``real_fl`` run's models cross with ``cnn_params_from_reference`` (the
 reference's CNN params, a list of dicts of numpy arrays as
 ``jax.device_get`` gives them, to the port's tensors),
 ``cnn_params_to_reference`` (back); ``FusedMultiRuntime.load_params(job_id,
-params)`` takes either form for one job. Nothing here imports the
+params)`` takes either form for one job. A language model's params cross
+with ``lm_params_from_reference`` / ``lm_params_to_reference``: the
+reference's ``lm_init`` params (nested dicts, block leaves stacked on a
+leading layer axis) keep that layout in the port. Nothing here imports the
 reference.
 """
 
@@ -51,6 +54,23 @@ def cnn_params_from_reference(params: List[Dict[str, Any]],
 def cnn_params_to_reference(params: List[Dict[str, Any]]
                             ) -> List[Dict[str, np.ndarray]]:
     """The port's CNN params as numpy float32 arrays, the reference's
+    layout (``jnp.asarray`` of each leaf gives its params)."""
+    return tree_map(lambda t: t.detach().cpu().numpy().astype(np.float32),
+                    params)
+
+
+def lm_params_from_reference(params: Dict[str, Any],
+                             device: str = "cuda") -> Dict[str, Any]:
+    """The reference's LLM params (numpy float32 leaves, as
+    ``jax.device_get`` gives them) as float32 tensors on ``device``; values
+    are copied exactly."""
+    return tree_map(
+        lambda a: torch.as_tensor(np.array(a, np.float32), device=device),
+        params)
+
+
+def lm_params_to_reference(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's LLM params as numpy float32 arrays in the reference's
     layout (``jnp.asarray`` of each leaf gives its params)."""
     return tree_map(lambda t: t.detach().cpu().numpy().astype(np.float32),
                     params)

@@ -22,7 +22,7 @@ from typing import List
 
 import numpy as np
 
-from repro_torch.config.base import JobConfig
+from repro_torch.config.base import ArchFamily, JobConfig
 from repro_torch.core.devices import DevicePool
 from repro_torch.experiment.registry import register_runtime
 from repro_torch.fl.runtime import (DEFAULT_B0, FLJobRuntime,
@@ -55,6 +55,12 @@ def real_fl_runtime(spec, jobs: List[JobConfig], pool: DevicePool, *,
     from repro_torch.data.synthetic import make_classification_dataset
     from repro_torch.fl.partition import iid_partition, noniid_partition
 
+    for job in jobs:
+        if job.model.family != ArchFamily.CNN:
+            raise NotImplementedError(
+                f"real_fl trains the paper's CNN zoo; {job.model.name!r} is "
+                f"a {job.model.family.value} language model, and LM training "
+                "is ROADMAP module 10, not ported yet")
     datasets = []
     for jid, job in enumerate(jobs):
         cfg = job.model

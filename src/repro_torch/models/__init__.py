@@ -1,1 +1,2 @@
-"""The paper's CNN zoo in PyTorch (see ``cnn_zoo``)."""
+"""The paper's CNN zoo (``cnn_zoo``) and the dense LLM zoo (``layers``,
+``attention``, ``transformer``) in PyTorch."""

@@ -1,0 +1,129 @@
+"""Shared transformer layers: RMSNorm, RoPE, MLP variants, embeddings.
+
+Params are plain dicts of tensors. Initialisers take a numpy Generator and
+make the reference's draws in the reference's order, rounded to the param
+dtype once, so ``lm_init`` is bit-identical to ``repro.models``'.
+
+``use_param`` casts a weight to the compute dtype, as the reference does on
+every call. Where the weight is already in that dtype the cast is a no-op,
+so a model may be handed a compute copy made once (``compute_params`` in
+``models/transformer.py``): the numbers are identical and each step skips
+re-casting every f32 weight.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config.base import ModelConfig
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.param_dtype]
+
+
+def normal(rng: np.random.Generator, shape, scale, dtype) -> torch.Tensor:
+    return torch.as_tensor(rng.normal(0.0, scale, shape)).to(dtype)
+
+
+def ones(shape, dtype) -> torch.Tensor:
+    return torch.ones(shape, dtype=dtype)
+
+
+def use_param(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The weight in the compute dtype (a no-op on a compute copy)."""
+    return w if w.dtype == dtype else w.to(dtype)
+
+
+# ---- RMSNorm ----
+
+def rmsnorm_init(cfg: ModelConfig, dim: int):
+    return {"scale": ones((dim,), param_dtype(cfg))}
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+# ---- RoPE ----
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: (..., S, H, D) rotated by positions (..., S). Angles in f32, cos
+    and sin cast to x's dtype before the rotation, as in the reference."""
+    d = x.shape[-1]
+    half = d // 2
+    base = torch.tensor(1.0 / theta, dtype=torch.float32, device=x.device)
+    freq = base ** (torch.arange(half, dtype=torch.float32,
+                                 device=x.device) / half)
+    ang = positions[..., None].float() * freq          # (..., S, half)
+    cos = torch.cos(ang)[..., None, :].to(x.dtype)     # broadcast over heads
+    sin = torch.sin(ang)[..., None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ---- MLP (SwiGLU / GeGLU / GELU) ----
+
+def mlp_init(cfg: ModelConfig, rng: np.random.Generator):
+    d, f = cfg.d_model, cfg.d_ff
+    s_in = 1.0 / np.sqrt(d)
+    s_out = 1.0 / np.sqrt(f)
+    pd = param_dtype(cfg)
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        return {"w_gate": normal(rng, (d, f), s_in, pd),
+                "w_up": normal(rng, (d, f), s_in, pd),
+                "w_down": normal(rng, (f, d), s_out, pd)}
+    return {"w_up": normal(rng, (d, f), s_in, pd),
+            "w_down": normal(rng, (f, d), s_out, pd)}
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        act = F.silu if cfg.mlp_kind == "swiglu" else _gelu
+        h = act(x @ use_param(p["w_gate"], dt)) * (x @ use_param(p["w_up"], dt))
+    else:
+        h = _gelu(x @ use_param(p["w_up"], dt))
+    return h @ use_param(p["w_down"], dt)
+
+
+# ---- Embeddings ----
+
+def embed_init(cfg: ModelConfig, rng: np.random.Generator):
+    return {"embedding": normal(rng, (cfg.vocab_size, cfg.d_model),
+                                1.0 / np.sqrt(cfg.d_model), param_dtype(cfg))}
+
+
+def embed_apply(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
+    # Gather, then cast: the same numbers as casting the table first.
+    return use_param(p["embedding"][tokens], compute_dtype(cfg))
+
+
+def unembed_apply(cfg: ModelConfig, emb_p, head_p,
+                  x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ use_param(emb_p["embedding"], x.dtype).t()
+    return x @ use_param(head_p["w"], x.dtype)
+
+
+def head_init(cfg: ModelConfig, rng: np.random.Generator):
+    if cfg.tie_embeddings:
+        return {}
+    return {"w": normal(rng, (cfg.d_model, cfg.vocab_size),
+                        1.0 / np.sqrt(cfg.d_model), param_dtype(cfg))}

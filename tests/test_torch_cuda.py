@@ -158,3 +158,116 @@ def test_fedavg_compressed_cuda_matches_ref(cuda):
                                        rtol=1e-5, atol=1e-5)
             np.testing.assert_allclose(lf[key].cpu(), lp[key].cpu(),
                                        rtol=1e-5, atol=1e-5)
+
+
+# ---- flash and decode attention (kernels/csrc/{flash,decode}_attention.cu) ----
+# The reference's tolerances: 2e-5 in float32; in bfloat16 2e-2 for flash
+# and 3e-2 for decode (tests/test_kernels_flash.py, test_kernels_decode.py).
+
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+
+ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 3e-2)}
+
+
+def randn(g, shape, dtype):
+    return torch.randn(shape, device=g.device, generator=g).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", [
+    (2, 128, 4, 2, 64, True, None), (1, 256, 8, 8, 32, True, None),
+    (2, 128, 4, 1, 64, True, 64), (1, 64, 2, 2, 128, False, None),
+    (3, 64, 4, 4, 16, True, 16), (1, 333, 4, 1, 256, True, None),
+    (2, 300, 25, 5, 64, True, 100), (1, 200, 32, 2, 128, False, 50)])
+def test_flash_matches_plain(cuda, dtype, B, S, H, KV, D, causal, window):
+    g = torch.Generator(device=cuda).manual_seed(S * 7 + H)
+    q = randn(g, (B, S, H, D), dtype)
+    k = randn(g, (B, S, KV, D), dtype)
+    v = randn(g, (B, S, KV, D), dtype)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and got.dtype == dtype
+    exp = fa.attention_ref(q, k, v, causal=causal, window=window)
+    tol = ATTN_TOL[dtype][0]
+    np.testing.assert_allclose(got.float().cpu(), exp.float().cpu(),
+                               atol=tol, rtol=tol)
+
+
+def test_flash_gradient_through_kernel_forward(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    leaves = [randn(g, s, torch.float32).requires_grad_()
+              for s in ((1, 64, 4, 32), (1, 64, 2, 32), (1, 64, 2, 32))]
+    (fa.flash_attention(*leaves) ** 2).sum().backward()
+    plain = [t.detach().clone().requires_grad_() for t in leaves]
+    (fa.attention_ref(*plain) ** 2).sum().backward()
+    for a, b in zip(leaves, plain):
+        np.testing.assert_allclose(a.grad.cpu(), b.grad.cpu(), atol=5e-4,
+                                   rtol=5e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,D,T", [
+    (2, 4, 2, 64, 128), (3, 8, 1, 32, 256), (2, 8, 8, 128, 64),
+    (16, 16, 8, 128, 4096), (4, 32, 2, 128, 1000), (2, 4, 2, 256, 777),
+    (5, 16, 16, 16, 100)])
+def test_decode_matches_plain(cuda, dtype, B, H, KV, D, T):
+    g = torch.Generator(device=cuda).manual_seed(T + H)
+    q = randn(g, (B, H, D), dtype)
+    k = randn(g, (B, T, KV, D), dtype)
+    v = randn(g, (B, T, KV, D), dtype)
+    length = torch.randint(1, T + 1, (B,), device=cuda, generator=g).int()
+    length[0] = 0
+    length[1] = T
+    before = da.launches
+    got = da.decode_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    assert da.launches == before + 1 and got.dtype == dtype
+    exp = da.decode_attention_ref(q, k, v, length)
+    tol = ATTN_TOL[dtype][1]
+    np.testing.assert_allclose(got.float().cpu(), exp.float().cpu(),
+                               atol=tol, rtol=tol)
+    # rows past each length are never read
+    k2, v2 = k.clone(), v.clone()
+    for b, n in enumerate(length.tolist()):
+        if 0 < n < T:
+            k2[b, n:] = 1e4
+            v2[b, n:] = float("nan")
+    again = da.decode_attention(q, k2, v2, length)
+    assert torch.equal(again, got)
+
+
+def test_decode_rejects_bad_inputs(cuda):
+    q = torch.zeros((2, 4, 64), device=cuda)
+    kv = torch.zeros((2, 8, 2, 64), device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        da.decode_attention(q, kv, kv, torch.zeros(2, dtype=torch.int64,
+                                                   device=cuda))
+    with pytest.raises(ValueError, match="several devices"):
+        da.decode_attention(q, kv, kv, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="D in"):
+        da.decode_attention(q[..., :48].contiguous(),
+                            kv[..., :48].contiguous(),
+                            kv[..., :48].contiguous(),
+                            torch.zeros(2, dtype=torch.int32, device=cuda))
+
+
+def test_reduced_model_kernels_match_plain_on_card(cuda):
+    """A reduced dense model on the card: prefill and decode through the
+    kernels against the same model under ``ops.set_default_impl("ref")``."""
+    from repro_torch.configs.qwen3_1p7b import reduced
+    from repro_torch.kernels import ops
+    import dataclasses
+
+    cfg = dataclasses.replace(reduced(), dtype="float32")
+    params = tfm.lm_init(cfg, seed=0, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda)
+    got = tfm.lm_apply(cfg, params, toks)
+    ops.set_default_impl("ref")
+    try:
+        exp = tfm.lm_apply(cfg, params, toks)
+    finally:
+        ops.set_default_impl("cuda")
+    np.testing.assert_allclose(got.cpu(), exp.cpu(), atol=1e-4, rtol=1e-4)

@@ -174,8 +174,10 @@ def test_reference_result_json_replays(tmp_path):
     (dict(fleet={"num_shards": 2}), "module 7"),
     (dict(scheduler="bods"), "module 5"),
     (dict(scheduler="genetic", search_backend="fused"), "module 5"),
-    (dict(runtime="real_fl", jobs=(JobSpec(name="lm", model="qwen3-8b"),)),
+    (dict(runtime="real_fl", jobs=(JobSpec(name="lm", model="dbrx-132b"),)),
      "module 10"),
+    (dict(runtime="real_fl", runtime_kwargs={},
+          jobs=(JobSpec(name="lm", model="qwen3-8b"),)), "module 10"),
 ])
 def test_axes_not_ported_raise(change, module):
     spec = presets.get_preset("quickstart", scheduler="greedy").replace(
@@ -185,15 +187,32 @@ def test_axes_not_ported_raise(change, module):
 
 
 def test_model_other_than_stub_raises():
-    """Only the language-model arch ids still raise (ROADMAP module 10); the
-    paper's CNN zoo builds and trains (tests/test_torch_runtime.py)."""
+    """Only the MoE, hybrid, SSM, audio and VLM arch ids still raise
+    (ROADMAP module 10); the paper's CNN zoo builds and trains
+    (tests/test_torch_runtime.py)."""
     spec = presets.get_preset("real-fl-two-job", scheduler="greedy")
     exp = spec.build(device="cpu")
     names = [j.config.model.name for j in exp.engine.jobs]
     assert names == ["paper-lenet5", "paper-cnn-b"]
-    lm = spec.replace(jobs=(JobSpec(name="lm", model="qwen3-8b"),))
+    lm = spec.replace(jobs=(JobSpec(name="lm", model="dbrx-132b"),))
     with pytest.raises(NotImplementedError, match="module 10"):
         lm.build(device="cpu")
+
+
+@pytest.mark.parametrize("model", ["qwen3-8b", "deepseek-67b"])
+def test_synthetic_preset_with_dense_llm_job_identical(model):
+    """A dense LLM id now resolves in both packages: a synthetic-runtime
+    run with such a job gives the reference's records."""
+    ref_spec, port_spec = twin_specs("quickstart", "greedy", max_rounds=6)
+    jobs = (JobSpec(name="lm", model=model, max_rounds=6),) + tuple(
+        port_spec.jobs[1:])
+    port_spec = port_spec.replace(jobs=jobs)
+    ref_spec = ref_spec.from_dict(port_spec.to_dict())
+    assert ref_spec.to_dict() == port_spec.to_dict()
+    a = ref_spec.run()
+    b = port_spec.run(device="cpu")
+    assert_records_identical(a.records, b.records)
+    assert a.summary == b.summary
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -204,6 +223,16 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
         "import repro_torch.fl, repro_torch.models.cnn_zoo\n"
         "import repro_torch.optim.compression, repro_torch.configs\n"
+        "import repro_torch.launch.serve, repro_torch.launch.steps\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.decode_attention\n"
+        "import repro_torch.config.shapes\n"
+        "from repro_torch.launch.serve import load_config, serve\n"
+        "from repro_torch.models.transformer import lm_init\n"
+        "cfg = load_config('qwen3-1.7b', reduced=True)\n"
+        "res = serve(cfg, lm_init(cfg, device='cpu'), requests=3, slots=2,"
+        " max_new=3, cache_len=8, device='cpu')\n"
+        "assert res.steps == 6, res.steps\n"
         "r2 = get_preset('real-fl-two-job', scheduler='greedy', rounds=1,"
         " num_devices=10).replace(runtime_kwargs={'samples_per_job': 400,"
         " 'eval_samples': 40}).run(device='cpu')\n"

@@ -45,9 +45,10 @@ def max_err(a, b) -> float:
 
 
 def test_registry_lists_the_paper_zoo():
-    assert tuple(sorted(ARCHS)) == tuple(list_archs())
+    dense = ("qwen3-1.7b", "qwen3-8b", "glm4-9b", "deepseek-67b")
+    assert tuple(sorted(ARCHS + dense)) == tuple(list_archs())
     with pytest.raises(NotImplementedError, match="module 10"):
-        get_arch("qwen3-8b")
+        get_arch("dbrx-132b")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 
