@@ -71,6 +71,31 @@ non-zero with a traceback, and no phase's failure is caught.
    within ``MODEL_BF16_RTOL`` of the largest, and at least
    ``MODEL_BF16_GREEDY`` of the greedy tokens identical).
 
+8. lm-kernels-2 — the MoE grouped matmul, the linear scan and RMSNorm
+   against their plain PyTorch versions on the card, within the reference
+   tests' tolerances (moe_gmm 1e-4 f32 and 2e-2 bf16; the scan 2e-4 in
+   f32 and 2e-2 in bf16; rmsnorm 1e-5 and 2e-2), each bf16 output row also
+   within ``BF16_ROW_RTOL`` of the plain version run in f32: dbrx-132b's
+   prefill (C = 2560) and decode (C = 5) expert shapes, kimi-k2's (384
+   experts, C = 214 and 1), the unaligned (3, 100, 130, 70), E = 1, C = 1;
+   hymba's (2, 4096, 25 heads, 16 x 128) and xlstm's 512 x 512 state at
+   (1, 1024) and (2, 4096), S = 333 and 1000, strong decay; norms of
+   (8192, 2048), (8192, 6144), (16, 6144), 4097 rows of 1600, d = 100.
+   Times of the kernel, the plain version and the library call
+   (``torch.bmm``; ``rms_norm``; none computes the scan), beside the bound.
+9. lm-serve-2 — the MoE, hybrid and SSM paths through the port's entry
+   points: dbrx-132b at full width with 2 of its 40 layers (its tree from
+   ``lm_param_shapes``, drawn on the card), one (2, 4096) prefill
+   (``moe_gmm`` 3 launches a layer, flash 1), the serve loop of phase 7
+   (3 ``moe_gmm`` and 1 decode launch per layer and step), a long-cache
+   step, ``torch.profiler`` splits and the bf16 model against itself under
+   ``set_default_impl("ref")`` with the share of routings that agree (the
+   logit limit on the tokens every layer routed alike, greedy tokens over
+   all); hymba-1.5b (32 layers) and xlstm-350m (24 layers) at full size
+   from ``lm_init``: a (2, 4096) and a (1, 1024) prefill (``linear_scan``
+   once per hymba layer and xlstm mLSTM block; never in decode), the serve
+   loop, a step, splits, and each model against itself in f32 and bf16.
+
 The line before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
 them; the last line is ``{"ok": true, "device": {...}}``.
@@ -948,7 +973,7 @@ def filled_state(torch, dev, cfg, B, T, seed):
 
     state = init_decode_state(cfg, B, T, device=dev)
     g = torch.Generator(device=dev).manual_seed(seed)
-    for t in state["kv"].values():
+    for t in state.get("kv", {}).values():
         for i in range(t.shape[0]):  # one layer at a time: no f32 temporary
             t[i].copy_(torch.randn(t[i].shape, device=dev, generator=g))
     return state
@@ -959,6 +984,12 @@ def kernel_class(name: str) -> str:
         return "flash_attention"
     if "decode_kernel" in name or "combine_kernel" in name:
         return "decode_attention"
+    if "gmm_mma_kernel" in name or "gmm_f32_kernel" in name:
+        return "moe_gmm"
+    if "scan_kernel<" in name or "scan_kernelI" in name:
+        return "linear_scan"
+    if "rmsnorm_kernel" in name:
+        return "rmsnorm"
     if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "nvjet",
                                        "gemv")):
         return "matmul"
@@ -1012,6 +1043,22 @@ def logits_agree(torch, got, exp):
                 max_abs_logit=float(exp.abs().max()),
                 greedy_same=float((got.argmax(-1) == exp.argmax(-1))
                                   .float().mean()))
+
+
+def check_bf16_agree(name, d):
+    if not (d["max_abs_err"] <= MODEL_BF16_RTOL * d["max_abs_logit"]
+            and d["greedy_same"] >= MODEL_BF16_GREEDY):
+        raise AssertionError(f"{name}: kernels and plain versions differ by "
+                             f"{d['max_abs_err']} (largest logit "
+                             f"{d['max_abs_logit']}), greedy tokens the same "
+                             f"at {d['greedy_same']}")
+
+
+def check_f32_agree(name, d):
+    if not d["max_abs_err"] <= MODEL_F32_RTOL * d["max_abs_logit"]:
+        raise AssertionError(f"{name}: kernels and plain versions differ by "
+                             f"{d['max_abs_err']} (largest logit "
+                             f"{d['max_abs_logit']})")
 
 
 def phase_lm_serve(torch, dev) -> dict:
@@ -1119,10 +1166,7 @@ def phase_lm_serve(torch, dev) -> dict:
     f32_decode = logits_agree(torch, got, exp)
     del st32, st_ref, got, exp
     for name, d in (("f32 prefill", f32_prefill), ("f32 decode", f32_decode)):
-        if not d["max_abs_err"] <= MODEL_F32_RTOL * d["max_abs_logit"]:
-            raise AssertionError(f"{name}: kernels and plain versions differ "
-                                 f"by {d['max_abs_err']} (largest logit "
-                                 f"{d['max_abs_logit']})")
+        check_f32_agree(name, d)
     got, exp = both(lambda: prefill(cparams, {"tokens": toks}))
     bf16_prefill = logits_agree(torch, got, exp)
     del got, exp
@@ -1139,12 +1183,7 @@ def phase_lm_serve(torch, dev) -> dict:
     del stb, stb_ref, got, exp
     for name, d in (("bf16 prefill", bf16_prefill),
                     ("bf16 decode", bf16_decode)):
-        if not (d["max_abs_err"] <= MODEL_BF16_RTOL * d["max_abs_logit"]
-                and d["greedy_same"] >= MODEL_BF16_GREEDY):
-            raise AssertionError(f"{name}: kernels and plain versions differ "
-                                 f"by {d['max_abs_err']} (largest logit "
-                                 f"{d['max_abs_logit']}), greedy tokens the "
-                                 f"same at {d['greedy_same']}")
+        check_bf16_agree(name, d)
     torch.cuda.empty_cache()
     served = sum(len(t) for t in res.tokens)
     return dict(
@@ -1166,6 +1205,668 @@ def phase_lm_serve(torch, dev) -> dict:
         bf16_vs_plain=dict(prefill=bf16_prefill, decode=bf16_decode,
                            rtol=MODEL_BF16_RTOL,
                            min_greedy_same=MODEL_BF16_GREEDY))
+
+
+# ---- phase 8 -------------------------------------------------------------
+
+# The reference kernel tests' tolerances, as |got - exp| <= tol (1 + |exp|):
+# moe_gmm 1e-4 (f32) and 2e-2 (bf16), tests/test_kernels_moe.py; the scan
+# 2e-4 in f32, tests/test_kernels_ssm.py (bf16 outputs round to 2^-9 of
+# their size, so they are held to 2e-2 against the plain bf16 version and
+# row by row to BF16_ROW_RTOL against the plain version in f32); rmsnorm
+# 1e-5 and 2e-2, tests/test_kernels_rmsnorm.py.
+GMM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SCAN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+NORM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+BOTH = ("bfloat16", "float32")
+
+
+def gmm_cases():
+    """label, E, C, din, dout, dtypes, main. C is the MoE block's capacity
+    for the path's token counts (moe.capacity)."""
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.moe import capacity
+
+    dbrx, kimi = get_arch("dbrx-132b"), get_arch("kimi-k2-1t-a32b")
+    d, f = dbrx.d_model, dbrx.d_ff
+    return [
+        ("dbrx prefill (2 x 4096), gate/up", 16, capacity(dbrx, 8192), d, f,
+         BOTH, True),
+        ("dbrx prefill (2 x 4096), down", 16, capacity(dbrx, 8192), f, d,
+         ("bfloat16",), True),
+        ("dbrx decode (16 slots), gate/up", 16, capacity(dbrx, 16), d, f,
+         BOTH, True),
+        ("kimi-k2 prefill (8192 tokens), gate/up", 384, capacity(kimi, 8192),
+         kimi.d_model, kimi.d_ff, ("bfloat16",), False),
+        ("kimi-k2 decode (16 slots), gate/up", 384, capacity(kimi, 16),
+         kimi.d_model, kimi.d_ff, ("bfloat16",), False),
+        ("unaligned (3, 100, 130, 70)", 3, 100, 130, 70, BOTH, False),
+        ("E = 1", 1, 256, 512, 128, BOTH, False),
+        ("C = 1", 8, 1, 1024, 1024, BOTH, False),
+    ]
+
+
+SCAN_CASES = [
+    # label, B, S, H, Dk, Dv, decay range, dtypes, main
+    ("hymba prefill (2, 4096), 25 heads, 16 x 128", 2, 4096, 25, 16, 128,
+     (0.3, 1.0), BOTH, True),
+    ("xlstm prefill (1, 1024), 4 heads, 512 x 512", 1, 1024, 4, 512, 512,
+     (0.5, 1.0), BOTH, True),
+    ("xlstm (2, 4096), 512 x 512", 2, 4096, 4, 512, 512, (0.5, 1.0),
+     ("bfloat16",), False),
+    ("S = 333", 1, 333, 3, 16, 128, (0.5, 1.0), BOTH, False),
+    ("S = 1000", 2, 1000, 2, 64, 64, (0.5, 1.0), BOTH, False),
+    ("strong decay", 2, 200, 2, 8, 16, (0.01, 0.2), BOTH, False),
+]
+
+NORM_CASES = [
+    # label, shape, dtypes
+    ("(8192, 2048)", (8192, 2048), BOTH),
+    ("(8192, 6144)", (8192, 6144), ("bfloat16",)),
+    ("(16, 6144)", (16, 6144), ("bfloat16",)),
+    ("odd rows, d = 1600", (4097, 1600), BOTH),
+    ("d = 100 (no 16-byte vectors)", (33, 100), BOTH),
+]
+
+
+def scan_f64(torch, q, k, v, a):
+    """The recurrence step by step in float64: the exact yardstick."""
+    q, k, v, a = (t.double() for t in (q, k, v, a))
+    B, S, H, Dk = q.shape
+    St = torch.zeros((B, H, Dk, v.shape[-1]), dtype=torch.float64,
+                     device=q.device)
+    nt = torch.zeros((B, H, Dk), dtype=torch.float64, device=q.device)
+    ys = []
+    for t in range(S):
+        St = a[:, t, :, None, None] * St + k[:, t, :, :, None] * \
+            v[:, t, :, None, :]
+        nt = a[:, t, :, None] * nt + k[:, t]
+        den = torch.einsum("bhk,bhk->bh", q[:, t], nt).abs().clamp(min=1.0)
+        ys.append(torch.einsum("bhk,bhkv->bhv", q[:, t], St) / den[..., None])
+    return torch.stack(ys, 1)
+
+
+def rel_err(got, exact) -> float:
+    """max |got - exact| / (1 + |exact|)."""
+    return float(((got.double() - exact).abs() / (1 + exact.abs())).max())
+
+
+def phase_lm_kernels_2(torch, dev) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssm_scan as ss
+
+    g = torch.Generator(device=dev).manual_seed(1500)
+    gmm_rows, scan_rows, norm_rows = [], [], []
+    for label, E, C, din, dout, dtypes, main in gmm_cases():
+        for dname in dtypes:
+            dt = tdtype(torch, dname)
+            x = torch.randn((E, C, din), device=dev, generator=g, dtype=dt)
+            w = torch.randn((E, din, dout), device=dev, generator=g, dtype=dt)
+            w.mul_(din ** -0.5)           # the models' 1/sqrt(fan-in)
+            got = gmm.moe_gmm(x, w)
+            exp = gmm.moe_gmm_ref(x, w)
+            torch.cuda.synchronize()
+            err = attn_close(got, exp, GMM_TOL[dname], f"moe_gmm {label}")
+            del exp
+            row_err = None
+            if dname == "bfloat16":
+                chunk = max(1, int(1e9 // (4 * din * dout)))
+                row_err = bf16_row_err(torch, got, gmm.moe_gmm_ref, (x, w),
+                                       f"moe_gmm {label}", chunk=chunk)
+            del got
+            flops = 2.0 * E * C * din * dout
+            big = flops >= 1e12
+            kernel_ms = cuda_time_ms(torch, lambda: gmm.moe_gmm(x, w),
+                                     inner=1 if big else 10,
+                                     reps=3 if big else 5)
+            plain_ms = cuda_time_ms(torch, lambda: gmm.moe_gmm_ref(x, w),
+                                    inner=1 if big else 10,
+                                    reps=3 if big else 5)
+            library_ms = cuda_time_ms(torch, lambda: torch.bmm(x, w),
+                                      inner=1 if big else 10,
+                                      reps=3 if big else 5)
+            nbytes = (E * C * din + E * din * dout + E * C * dout) * \
+                x.element_size()
+            bound_ms, bound_by = attn_bound(nbytes, flops, dname)
+            gmm_rows.append(dict(
+                label=label, dtype=dname, main=main, shape=[E, C, din, dout],
+                max_abs_err=err, bf16_row_err_vs_f32=row_err,
+                kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                tflops=flops / (kernel_ms * 1e9)))
+            del x, w
+            torch.cuda.empty_cache()
+    for label, B, S, H, Dk, Dv, (lo, hi), dtypes, main in SCAN_CASES:
+        for dname in dtypes:
+            dt = tdtype(torch, dname)
+            q = torch.randn((B, S, H, Dk), device=dev, generator=g, dtype=dt)
+            k = (0.5 * torch.randn((B, S, H, Dk), device=dev,
+                                   generator=g)).to(dt)
+            v = torch.randn((B, S, H, Dv), device=dev, generator=g, dtype=dt)
+            a = lo + (hi - lo) * torch.rand((B, S, H), device=dev,
+                                            generator=g)
+            got, state = ss.linear_scan(q, k, v, a,
+                                        want_final_state=not main)
+            exp, exp_state = ss.linear_scan_chunked_ref(q, k, v, a)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"linear_scan {label}: non-finite output")
+            err = attn_close(got, exp, SCAN_TOL[dname],
+                             f"linear_scan {label}")
+            vs_f64 = None
+            if dname == "float32":  # both against the exact recurrence
+                ora = scan_f64(torch, q, k, v, a)
+                vs_f64 = dict(kernel=rel_err(got, ora),
+                              plain=rel_err(exp, ora))
+                del ora
+            if state is not None:  # the closed-form final state, in f32
+                for s_, e in zip(state, exp_state):
+                    attn_close(s_, e, SCAN_TOL["float32"] if dname ==
+                               "float32" else SCAN_TOL["bfloat16"],
+                               f"linear_scan {label} final state")
+            del exp, exp_state, state
+            row_err = None
+            if dname == "bfloat16":
+                row_err = bf16_row_err(
+                    torch, got, lambda *t: ss.linear_scan_chunked_ref(*t)[0],
+                    (q, k, v, a), f"linear_scan {label}", chunk=1)
+            del got
+            big = B * S * H * Dk * Dv >= 10 ** 9
+            kernel_ms = cuda_time_ms(
+                torch, lambda: ss.linear_scan(q, k, v, a,
+                                              want_final_state=False),
+                inner=1 if big else 5, reps=3 if big else 5)
+            plain_ms = cuda_time_ms(
+                torch, lambda: ss.linear_scan_chunked_ref(q, k, v, a),
+                inner=1, reps=3, hide_host=False)
+            # the recurrence's own work: S update and q.S per token and head
+            ops = B * S * H * (4.0 * Dk * Dv + 4.0 * Dk + 2.0 * Dv)
+            nbytes = B * S * H * ((2 * Dk + 2 * Dv) * q.element_size() + 4)
+            bound_ms, bound_by = attn_bound(nbytes, ops, "float32")
+            scan_rows.append(dict(
+                label=label, dtype=dname, main=main,
+                shape=[B, S, H, Dk, Dv], decay=[lo, hi], max_abs_err=err,
+                bf16_row_err_vs_f32=row_err, rel_err_vs_f64=vs_f64,
+                kernel_ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by))
+            del q, k, v, a
+            torch.cuda.empty_cache()
+    for label, shape, dtypes in NORM_CASES:
+        for dname in dtypes:
+            dt = tdtype(torch, dname)
+            x = (2 * torch.randn(shape, device=dev, generator=g)).to(dt)
+            s = 1 + 0.1 * torch.randn(shape[-1:], device=dev, generator=g)
+            got = rn.rmsnorm(x, s)
+            exp = rn.rmsnorm_ref(x, s)
+            torch.cuda.synchronize()
+            err = attn_close(got, exp, NORM_TOL[dname], f"rmsnorm {label}")
+            row_err = None
+            if dname == "bfloat16":
+                row_err = bf16_row_err(
+                    torch, got, lambda xf: rn.rmsnorm_ref(xf, s), (x,),
+                    f"rmsnorm {label}", chunk=shape[0])
+            del got, exp
+            s_lib = s.to(dt)
+            kernel_ms = cuda_time_ms(torch, lambda: rn.rmsnorm(x, s),
+                                     inner=20)
+            plain_ms = cuda_time_ms(torch, lambda: rn.rmsnorm_ref(x, s),
+                                    inner=20)
+            library_ms = cuda_time_ms(
+                torch, lambda: F.rms_norm(x, shape[-1:], s_lib, 1e-6),
+                inner=20)
+            n = x.numel()
+            bound_ms, bound_by = attn_bound(
+                2 * n * x.element_size() + 4 * shape[-1], 4.0 * n, "float32")
+            norm_rows.append(dict(
+                label=label, dtype=dname, shape=list(shape), max_abs_err=err,
+                bf16_row_err_vs_f32=row_err, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by))
+            del x, s, s_lib
+    torch.cuda.empty_cache()
+    return {"moe_gmm": gmm_rows, "linear_scan": scan_rows,
+            "rmsnorm": norm_rows}
+
+
+# ---- phase 9 -------------------------------------------------------------
+
+DBRX_LAYERS = 2                # of 40: two layers at full width fit a card
+HYMBA_PREFILL = (2, 4096)
+XLSTM_PREFILL = (1, 1024)      # its sLSTM steps one token at a time
+SELF_CHECK = (1, 2048)         # dbrx's prefill self-check
+# hymba's and xlstm's self-checks run the sequential oracle scan, one
+# token at a time: shorter prompts (xlstm's sLSTM steps token by token too)
+SELF_CHECK_LEN = {"hymba-1.5b": 1024, "xlstm-350m": 256}
+
+
+def draw_params(torch, cfg, dev, seed: int):
+    """``cfg``'s param tree from ``lm_param_shapes``, drawn on the card from
+    ``seed``: every matrix normal with std 1/sqrt(fan-in) (the embedding
+    1/sqrt(d_model), as lm_init draws it), norm scales ones, the SSD decay
+    base zeros; float32."""
+    from repro_torch.models.transformer import lm_param_shapes
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(name, t):
+        out = torch.empty(t.shape, dtype=torch.float32, device=dev)
+        if name in ("scale", "q_norm", "k_norm"):
+            return out.fill_(1.0)
+        if name == "a_log":
+            return out.zero_()
+        fan_in = t.shape[-1] if name == "embedding" else t.shape[-2]
+        return out.normal_(0.0, fan_in ** -0.5, generator=g)
+
+    def walk(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        return draw(name, tree)
+
+    return walk(lm_param_shapes(cfg))
+
+
+class RouteLog:
+    """Records the expert ids ``models/moe.py::route`` picks, call by call,
+    while installed (the smoke's own instrumentation)."""
+
+    def __init__(self, moe_mod):
+        self.moe, self.orig, self.ids = moe_mod, moe_mod.route, []
+
+    def __enter__(self):
+        def logged(cfg, p, xf):
+            w, ids = self.orig(cfg, p, xf)
+            self.ids.append(ids.sort(dim=-1).values)
+            return w, ids
+        self.moe.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+        return False
+
+
+class SequentialScan:
+    """While installed, the plain scan (``set_default_impl("ref")``) is the
+    sequential oracle ``linear_scan_ref`` rather than the chunked form: the
+    smoke's own yardstick for the recurrent models."""
+
+    def __init__(self, ss):
+        self.ss, self.orig = ss, ss.linear_scan_chunked_ref
+
+    def __enter__(self):
+        self.ss.linear_scan_chunked_ref = (
+            lambda q, k, v, a, chunk=128: self.ss.linear_scan_ref(q, k, v, a))
+        return self
+
+    def __exit__(self, *exc):
+        self.ss.linear_scan_chunked_ref = self.orig
+        return False
+
+
+# hymba and xlstm amplify the rounding of their scans. The plain scan in
+# chunks (the reference's data path, 1e-5 off the exact recurrence in f32:
+# phase 8's rel_err_vs_f64) and the sequential oracle are two forms of the
+# same math, yet their whole models' logits differ (plain_vs_oracle
+# below), by far more than MODEL_F32_RTOL at hymba-1.5b; in bf16 the two
+# forms' greedy tokens part (the "not gated" records). The whole-model
+# limits of phase 7, from qwen3-1.7b, cannot hold between such forms. So
+# the recurrent models' f32 prefill is held to the exact recurrence: the
+# kernels' logits no further from the sequential-oracle model than the
+# plain model is, plus MODEL_F32_RTOL of the largest logit; in bf16 each
+# block is held on its own (blockwise_prefill, blockwise_decode).
+def check_vs_oracle(torch, name, got, exp, ora, rtol) -> dict:
+    vs_plain = logits_agree(torch, got, exp)
+    kern = logits_agree(torch, got, ora)
+    plain = logits_agree(torch, exp, ora)
+    limit = plain["max_abs_err"] + rtol * kern["max_abs_logit"]
+    if not kern["max_abs_err"] <= limit:
+        raise AssertionError(f"{name}: the kernels' logits are "
+                             f"{kern['max_abs_err']} from the sequential "
+                             f"oracle's, the plain version's "
+                             f"{plain['max_abs_err']} (limit {limit})")
+    return dict(vs_plain=vs_plain, kernels_vs_oracle=kern,
+                plain_vs_oracle=plain, limit=limit)
+
+
+def _row_err(torch, got, exp) -> float:
+    got, exp = got.float(), exp.float()
+    return float(((got - exp).norm(dim=-1)
+                  / exp.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def _check_blocks(name, errs) -> dict:
+    if not max(errs) <= BF16_ROW_RTOL:
+        raise AssertionError(f"{name}: block {errs.index(max(errs))}'s "
+                             f"output is off by {max(errs)} of a row's norm "
+                             f"(limit {BF16_ROW_RTOL})")
+    return dict(max_row_err=max(errs), row_err_by_block=errs)
+
+
+def blockwise_prefill(torch, ops, cfg, params, tokens, name) -> dict:
+    """Each block's prefill output through the kernels against the same
+    block under ``set_default_impl("ref")``, both fed the kernels' hidden
+    state: every output row within BF16_ROW_RTOL of its norm."""
+    from repro_torch.models import transformer as tf
+
+    x = tf._embed(cfg, params, tokens)
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    errs = []
+    for i in range(tf.num_blocks(cfg)):
+        p = tf._layer(params["blocks"], i)
+        got = tf._block_apply(cfg, p, x, pos)
+        exp = with_impl(ops, "ref", lambda: tf._block_apply(cfg, p, x, pos))
+        errs.append(_row_err(torch, got, exp))
+        x = got
+    return _check_blocks(name, errs)
+
+
+def blockwise_decode(torch, ops, cfg, params, dev, name, seed) -> dict:
+    """One decode step of 16 slots (lengths 37 b), block by block as in
+    blockwise_prefill; each block's plain run gets a copy of its state."""
+    from repro_torch.models import transformer as tf
+
+    def clone(tree):
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(clone(v) for v in tree)
+        return tree.clone()
+
+    B = SERVE["slots"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B,), device=dev, generator=g)
+    state = tf.init_decode_state(cfg, B, SERVE["cache_len"], device=dev)
+    length = (37 * torch.arange(B, device=dev)).int()
+    x = tf._embed(cfg, params, toks[:, None])
+    errs = []
+    for i in range(tf.num_blocks(cfg)):
+        p, st = tf._layer(params["blocks"], i), tf._layer(state, i)
+        st_ref = clone(st)
+        got, new = tf._block_decode(cfg, p, x, st, length)
+        exp, _ = with_impl(ops, "ref", lambda: tf._block_decode(
+            cfg, p, x, st_ref, length))
+        errs.append(_row_err(torch, got, exp))
+        tf._store(st, new)
+        x = got
+    return _check_blocks(name, errs)
+
+
+def with_impl(ops, impl, fn):
+    ops.set_default_impl(impl)
+    try:
+        return fn()
+    finally:
+        ops.set_default_impl("cuda")
+
+
+def serve_checked(cfg, cparams, dev, serve):
+    res = serve(cfg, cparams, device=dev, **SERVE)
+    if len(res.tokens) != SERVE["requests"] or any(
+            len(t) != SERVE["max_new"] for t in res.tokens):
+        raise AssertionError(f"{cfg.name}: a request was not answered in full")
+    if not all(0 <= x < cfg.vocab_size for t in res.tokens for x in t):
+        raise AssertionError(f"{cfg.name}: token id out of the vocabulary")
+    served = sum(len(t) for t in res.tokens)
+    return res, dict(SERVE, steps=res.steps, tokens=served,
+                     wall_s=res.seconds, tokens_per_s=served / res.seconds,
+                     ms_per_step=res.seconds / res.steps * 1e3)
+
+
+def check_logits(cfg, logits, shape):
+    if tuple(logits.shape) != tuple(shape) + (cfg.vocab_size,) or not bool(
+            logits.isfinite().all()):
+        raise AssertionError(f"{cfg.name}: prefill logits malformed")
+
+
+def decode_twins(torch, cfg, params, dev, ops, steps: int, seed: int):
+    """``steps`` decode steps of 16 slots from one state, through the
+    kernels and under ``set_default_impl("ref")``: the last logits of
+    each. Slot b starts at length 37 b (sliding windows wrap)."""
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.transformer import init_decode_state
+
+    step = make_serve_step(cfg)
+    B = SERVE["slots"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (steps, B), device=dev,
+                         generator=g).int()
+    out = []
+    for impl in ("cuda", "ref"):
+        state = init_decode_state(cfg, B, SERVE["cache_len"], device=dev)
+        length = (37 * torch.arange(B, device=dev)).int()
+        logits = None
+        for i in range(steps):
+            logits = with_impl(ops, impl, lambda: step(
+                params, state, toks[i], length)[0])
+            length = length + 1
+        out.append(logits)
+        del state
+    return out
+
+
+def drive_path(torch, dev, cfg, cparams, shape, per_prefill, per_step, g):
+    """The model's main path through the entry points, every launch count
+    at 0 just before and read just after: one prefill of ``shape`` tokens
+    and the serve loop; each kernel must launch ``per_prefill`` times in
+    the prefill and ``per_step`` times in each serve step (absent: 0).
+    Then the prefill's and a long-cache step's times and device splits."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    counters = {"moe_gmm": gmm, "linear_scan": ss, "flash_attention": fa,
+                "decode_attention": da}
+    prefill = make_prefill_step(cfg)
+    B, S = shape
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device=dev, generator=g)
+    prefill(cparams, {"tokens": toks[:1, :128]})       # warm-up, not counted
+    serve(cfg, cparams, requests=2, slots=2, max_new=2, cache_len=64,
+          device=dev)
+
+    for c in counters.values():
+        c.launches = 0
+    first_ms, _ = timed_ms(torch, lambda: check_logits(
+        cfg, prefill(cparams, {"tokens": toks}), (B, S)))
+    at_prefill = {n: c.launches for n, c in counters.items()}
+    res, serve_row = serve_checked(cfg, cparams, dev, serve)
+    at_end = {n: c.launches for n, c in counters.items()}
+    for n in counters:
+        want = per_prefill.get(n, 0)
+        if at_prefill[n] != want or \
+                at_end[n] != want + res.steps * per_step.get(n, 0):
+            raise AssertionError(
+                f"{cfg.name}: {n} launched {at_prefill[n]} times in the "
+                f"prefill and {at_end[n]} by the end of {res.steps} steps; "
+                f"expected {want} and {per_step.get(n, 0)} a step")
+
+    ms, _ = timed_ms(torch, lambda: prefill(cparams, {"tokens": toks}))
+    prefill_split = device_split(
+        torch, lambda: prefill(cparams, {"tokens": toks}), calls=1)
+    step = make_serve_step(cfg)
+    state = filled_state(torch, dev, cfg, SERVE["slots"], SERVE["cache_len"],
+                         1602)
+    lengths = (LONG_CACHE + torch.arange(SERVE["slots"], device=dev)).int()
+    step_toks = torch.randint(0, cfg.vocab_size, (SERVE["slots"],),
+                              device=dev, generator=g).int()
+    step_ms = cuda_time_ms(torch, lambda: step(cparams, state, step_toks,
+                                               lengths),
+                           inner=5, reps=3, hide_host=False)
+    step_split = device_split(
+        torch, lambda: step(cparams, state, step_toks, lengths), calls=3)
+    record = dict(
+        arch=cfg.name, layers=cfg.num_layers,
+        prefill=dict(batch=B, seq=S, first_call_ms=first_ms, ms=ms,
+                     tokens_per_s=B * S / (ms / 1e3), launches=at_prefill),
+        serve=dict(serve_row, launches=at_end),
+        long_cache_step=dict(slots=SERVE["slots"], lengths=LONG_CACHE,
+                             ms=step_ms, profile=step_split),
+        prefill_profile=prefill_split)
+    return record, toks, (state, step_toks, lengths)
+
+
+def moe_self_check(torch, ops, cfg, cparams, toks, step_args) -> dict:
+    """The bf16 MoE model against itself under ``set_default_impl("ref")``,
+    with both runs' routing recorded (``routed_agree``)."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import moe as moe_mod
+
+    prefill, step = make_prefill_step(cfg), make_serve_step(cfg)
+    short = toks[:SELF_CHECK[0], :SELF_CHECK[1]]
+    with RouteLog(moe_mod) as got_log:
+        got = prefill(cparams, {"tokens": short})
+    with RouteLog(moe_mod) as exp_log:
+        exp = with_impl(ops, "ref",
+                        lambda: prefill(cparams, {"tokens": short}))
+    pre = routed_agree(torch, got, exp, got_log.ids, exp_log.ids)
+    del got, exp
+    state, step_toks, lengths = step_args
+    st_ref = {"kv": {n: t.clone() for n, t in state["kv"].items()}}
+    with RouteLog(moe_mod) as got_log:
+        got = step(cparams, state, step_toks, lengths)[0]
+    with RouteLog(moe_mod) as exp_log:
+        exp = with_impl(ops, "ref", lambda: step(cparams, st_ref, step_toks,
+                                                 lengths)[0])
+    dec = routed_agree(torch, got, exp, got_log.ids, exp_log.ids)
+    for name, d in (("prefill", pre), ("decode", dec)):
+        check_bf16_agree(f"{cfg.name} bf16 {name}", d["routed_alike"])
+        if d["all"]["greedy_same"] < MODEL_BF16_GREEDY:
+            raise AssertionError(f"{cfg.name} bf16 {name}: greedy tokens the "
+                                 f"same at {d['all']['greedy_same']}")
+    return dict(prefill=pre, decode=dec, rtol=MODEL_BF16_RTOL,
+                min_greedy_same=MODEL_BF16_GREEDY)
+
+
+def recurrent_self_check(torch, dev, ops, cfg, params, cparams, short
+                         ) -> dict:
+    """hymba's and xlstm's checks (see check_vs_oracle). f32: the whole
+    model's prefill against the plain model and the sequential oracle, its
+    decode against the plain. bf16: block by block on the kernels' own
+    hidden states (gated), the whole model reported."""
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    checks = {}
+    for name, c, p in (("f32", cfg32, params), ("bf16", cfg, cparams)):
+        pf = make_prefill_step(c)
+        got = pf(p, {"tokens": short})
+        exp = with_impl(ops, "ref", lambda: pf(p, {"tokens": short}))
+        with SequentialScan(ss):
+            ora = with_impl(ops, "ref", lambda: pf(p, {"tokens": short}))
+        if name == "f32":
+            checks["f32 prefill"] = check_vs_oracle(
+                torch, f"{cfg.name} f32 prefill", got, exp, ora,
+                MODEL_F32_RTOL)
+        else:
+            checks["bf16 prefill, whole model (not gated)"] = dict(
+                vs_plain=logits_agree(torch, got, exp),
+                plain_vs_oracle=logits_agree(torch, exp, ora))
+        del got, exp, ora
+        got, exp = decode_twins(torch, c, p, dev, ops, steps=3, seed=1603)
+        d = logits_agree(torch, got, exp)
+        if name == "f32":
+            check_f32_agree(f"{cfg.name} f32 decode", d)
+            checks["f32 decode"] = d
+        else:
+            checks["bf16 decode, whole model (not gated)"] = d
+        del got, exp
+    checks["bf16 prefill, per block"] = blockwise_prefill(
+        torch, ops, cfg, cparams, short, f"{cfg.name} bf16 prefill")
+    checks["bf16 decode, per block"] = blockwise_decode(
+        torch, ops, cfg, cparams, dev, f"{cfg.name} bf16 decode", seed=1604)
+    return dict(checks, f32_rtol=MODEL_F32_RTOL,
+                bf16_block_row_rtol=BF16_ROW_RTOL)
+
+
+def phase_lm_serve_2(torch, dev) -> dict:
+    from repro_torch.config.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import compute_params, lm_init
+    from repro_torch.tree import tree_leaves
+
+    g = torch.Generator(device=dev).manual_seed(1600)
+    out = {}
+    # dbrx-132b, 2 of its 40 layers at full width: the MoE path
+    full = get_arch("dbrx-132b")
+    cfg = dataclasses.replace(full, num_layers=DBRX_LAYERS)
+    t0 = time.perf_counter()
+    params = draw_params(torch, cfg, dev, seed=1601)
+    cparams = compute_params(cfg, params)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    L = cfg.num_layers
+    rec, toks, step_args = drive_path(
+        torch, dev, cfg, cparams, PREFILL,
+        {"moe_gmm": 3 * L, "flash_attention": L},
+        {"moe_gmm": 3 * L, "decode_attention": L}, g)
+    out["dbrx"] = dict(rec, of_layers=full.num_layers, params=n_params,
+                       init_on_card_s=init_s,
+                       bf16_vs_plain=moe_self_check(torch, ops, cfg, cparams,
+                                                    toks, step_args))
+    del cparams, toks, step_args
+    torch.cuda.empty_cache()
+
+    # hymba-1.5b and xlstm-350m at full size: the hybrid and SSM paths
+    for arch, shape in (("hymba-1.5b", HYMBA_PREFILL),
+                        ("xlstm-350m", XLSTM_PREFILL)):
+        cfg = get_arch(arch)
+        t0 = time.perf_counter()
+        params = lm_init(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cparams = compute_params(cfg, params)
+        L = cfg.num_layers
+        if cfg.family.value == "hybrid":
+            per_prefill = {"linear_scan": L, "flash_attention": L}
+            per_step = {"decode_attention": L}
+        else:  # xLSTM: one scan per mLSTM block; no kernel in decode
+            per_prefill, per_step = {"linear_scan": L // 2}, {}
+        rec, toks, step_args = drive_path(torch, dev, cfg, cparams, shape,
+                                          per_prefill, per_step, g)
+        del step_args
+        out[arch.split("-")[0]] = dict(
+            rec, params=sum(t.numel() for t in tree_leaves(params)),
+            init_s=init_s, vs_plain=recurrent_self_check(
+                torch, dev, ops, cfg, params, cparams,
+                toks[:1, :SELF_CHECK_LEN[arch]]))
+        del params, cparams, toks
+        torch.cuda.empty_cache()
+    return out
+
+
+def timed_ms(torch, fn):
+    out, s = timed(torch, fn)
+    return s * 1e3, out
+
+
+def routed_agree(torch, got, exp, got_ids, exp_ids) -> dict:
+    """Logits of a MoE model against its plain run: over all tokens, and
+    over the tokens every MoE layer routed to the same experts in both (a
+    token whose bf16 router logits sit near a tie may take other experts
+    in the two runs, which moves its output by a whole expert's share).
+    Also the share of (token, layer) routings that agree."""
+    if len(got_ids) != len(exp_ids) or not got_ids:
+        raise AssertionError("the two runs routed a different number of "
+                             "MoE layers")
+    same = torch.stack([(a == b).all(-1) for a, b in zip(got_ids, exp_ids)])
+    alike = same.all(0)                        # (tokens,)
+    V = got.shape[-1]
+    g2, e2 = got.reshape(-1, V), exp.reshape(-1, V)
+    return dict(all=logits_agree(torch, g2, e2),
+                routed_alike=logits_agree(torch, g2[alike], e2[alike]),
+                routing_agree=float(same.float().mean()),
+                tokens_routed_alike=float(alike.float().mean()),
+                tokens=int(alike.numel()))
 
 
 def main(argv=None) -> int:
@@ -1213,6 +1914,10 @@ def main(argv=None) -> int:
     emit(dict(phase="lm-kernels", **lm_kern))
     lm_serve = phase_lm_serve(torch, dev)
     emit(dict(phase="lm-serve", **lm_serve))
+    lm_kern2 = phase_lm_kernels_2(torch, dev)
+    emit(dict(phase="lm-kernels-2", **lm_kern2))
+    lm_serve2 = phase_lm_serve_2(torch, dev)
+    emit(dict(phase="lm-serve-2", **lm_serve2))
     at = next(r for r in kern["plan_stats"]
               if r["label"] == "genetic-fleet-scale")
     fc = next(r for r in fl_kern["scatter_add"]
@@ -1251,13 +1956,34 @@ def main(argv=None) -> int:
             ms=at["kernel_ms"], plain_ms=at["plain_ms"],
             bound_ms=at["bound_ms"], bound_by=at["bound_by"],
             library_ms=at["library_ms"], shapes=rows))
+    scan_launches = sum(lm_serve2[m]["serve"]["launches"]["linear_scan"]
+                        for m in ("hymba", "xlstm"))
+    for name, cu, line, label, launches in (
+            ("moe_gmm", "moe_gmm.cu", "moe_gmm.py:20",
+             "dbrx prefill (2 x 4096), gate/up",
+             lm_serve2["dbrx"]["serve"]["launches"]["moe_gmm"]),
+            ("linear_scan", "linear_scan.cu", "ssm_scan.py:31",
+             "hymba prefill (2, 4096), 25 heads, 16 x 128", scan_launches),
+            ("rmsnorm", "rmsnorm.cu", "rmsnorm.py:17", "(8192, 6144)", 0)):
+        rows = lm_kern2[name]
+        at = next(r for r in rows
+                  if r["label"] == label and r["dtype"] == "bfloat16")
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{cu}",
+            replaces=f"src/repro/kernels/{line}", launches=launches,
+            on_main_path=name != "rmsnorm",  # no model calls rmsnorm
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=at["kernel_ms"], plain_ms=at["plain_ms"],
+            bound_ms=at["bound_ms"], bound_by=at["bound_by"],
+            library_ms=at["library_ms"], shapes=rows))
     emit(dict(phase="kernels", kernels=kernels))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(device=device, kernels=kernels, main=main_path,
-                 fl_main=fl_main, lm_kernels=lm_kern, lm_serve=lm_serve),
-            indent=1))
+                 fl_main=fl_main, lm_kernels=lm_kern, lm_serve=lm_serve,
+                 lm_kernels_2=lm_kern2, lm_serve_2=lm_serve2), indent=1))
     print(json.dumps({"kernels": [{k: v for k, v in kr.items()
                                    if k != "shapes"} for kr in kernels]}))
     print(smi)

@@ -5,7 +5,8 @@
 (``models/cnn_zoo.py``) and the LLM zoo (``models/transformer.py``) use
 them. ``ModelConfig`` carries every field of the reference's, so each
 architecture family's ``param_count`` is the reference's arithmetic; the
-LLM zoo itself runs the dense family (the others are ROADMAP module 10).
+LLM zoo itself runs the dense, MoE, hybrid and SSM families (audio and
+VLM are ROADMAP module 10).
 """
 
 from __future__ import annotations

@@ -59,21 +59,38 @@ def cnn_params_to_reference(params: List[Dict[str, Any]]
                     params)
 
 
+def _lm_leaf_from_reference(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: same bits as torch's
+        bits = np.array(a).view(np.int16)  # a writable copy
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a, np.float32), device=device)
+
+
 def lm_params_from_reference(params: Dict[str, Any],
                              device: str = "cuda") -> Dict[str, Any]:
-    """The reference's LLM params (numpy float32 leaves, as
-    ``jax.device_get`` gives them) as float32 tensors on ``device``; values
-    are copied exactly."""
-    return tree_map(
-        lambda a: torch.as_tensor(np.array(a, np.float32), device=device),
-        params)
+    """The reference's LLM params (numpy leaves, as ``jax.device_get``
+    gives them) as tensors on ``device``: a bfloat16 leaf (a
+    ``param_dtype="bfloat16"`` config such as kimi-k2) stays bfloat16, any
+    other becomes float32; values are copied exactly."""
+    return tree_map(lambda a: _lm_leaf_from_reference(a, device), params)
+
+
+def _lm_leaf_to_reference(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # JAX's own dependency, present beside the reference
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().astype(np.float32)
 
 
 def lm_params_to_reference(params: Dict[str, Any]) -> Dict[str, Any]:
-    """The port's LLM params as numpy float32 arrays in the reference's
-    layout (``jnp.asarray`` of each leaf gives its params)."""
-    return tree_map(lambda t: t.detach().cpu().numpy().astype(np.float32),
-                    params)
+    """The port's LLM params as numpy arrays in the reference's layout
+    (``jnp.asarray`` of each leaf gives its params): bfloat16 leaves as
+    ``ml_dtypes.bfloat16`` arrays (the package JAX's bf16 arrays use),
+    every other leaf as float32."""
+    return tree_map(_lm_leaf_to_reference, params)
 
 
 def load_engine_state(spec: Union[ExperimentSpec, dict],

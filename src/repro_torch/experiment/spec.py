@@ -25,8 +25,8 @@ spec field, so the reference's spec and result JSON load here unchanged;
 
 Axes the port does not run yet raise ``NotImplementedError`` naming their
 ROADMAP module: a non-inert ``slo`` or an active ``obs`` (8), ``policy``
-(9), ``fleet.num_shards`` > 1 (7), and (10) the MoE, hybrid, SSM, audio
-and VLM arch ids and LM training under ``real_fl``.
+(9), ``fleet.num_shards`` > 1 (7), and (10) the audio and VLM arch ids
+and LM training under ``real_fl``.
 """
 
 from __future__ import annotations
@@ -64,8 +64,7 @@ def _resolve_model(job: "JobSpec") -> ModelConfig:
     never trained by the synthetic runtime, but it gives the engine a valid
     config and the summary a stable key). Any other id resolves through the
     arch registry (``paper-lenet5``, ``paper-vgg16``, ...); the
-    MoE, hybrid, SSM, audio and VLM ids raise ``NotImplementedError``
-    (ROADMAP module 10).
+    audio and VLM ids raise ``NotImplementedError`` (ROADMAP module 10).
     """
     if job.model == STUB_MODEL:
         return ModelConfig(name=job.name, family=ArchFamily.CNN,

@@ -24,7 +24,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("sched_score", "scatter_add", "flash_attention", "decode_attention")
+KERNELS = ("sched_score", "scatter_add", "flash_attention", "decode_attention",
+           "moe_gmm", "linear_scan", "rmsnorm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,311 @@
+// Grouped expert matmul (MoE), for Hopper (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/moe_gmm.py::_gmm_kernel (moe_gmm
+// :44). With xg (E, C, din) bucketed tokens and wg (E, din, dout) expert
+// weights:
+//   out[e, c, f] = sum_d xg[e, c, d] * wg[e, d, f]
+// accumulated in f32, the output in the inputs' dtype.
+//
+// Bound on this card: at dbrx-132b's prefill (E = 16, C = 2560, din = 6144,
+// dout = 10752) a call is 5.41 TFLOP, 5.5 ms at the 989 TFLOP/s of the bf16
+// tensor cores (operations); at its decode (C = 5) the 2.1 GB of expert
+// weights bound it, 0.63 ms at 3.35 TB/s (bytes).
+//
+// Design:
+// - bf16 (the working type) runs on the tensor cores with
+//   mma.sync.m16n8k16 (bf16 in, f32 accumulate): one block of 4 warps per
+//   (64 rows of C, 128 columns of dout, expert); the din axis is a loop
+//   inside the block over tiles of 32, staged through a 3-deep ring in
+//   shared memory with cp.async (16-byte copies, zero-filled past the
+//   edge), so the next tiles load while the tensor cores work. Each warp
+//   owns a 32 x 64 piece of the output. A fragments are 32-bit shared
+//   loads; B fragments come from the row-major (din, dout) tile through
+//   ldmatrix.trans. Rows are padded by 8 elements so neither collides on
+//   shared-memory banks.
+// - The row tiles of C run fastest in the grid, so the blocks in flight
+//   share each expert's weight panel through L2 and the weights stream
+//   from device memory about once; at decode (one row tile) the grid is
+//   E x dout / 128 blocks, each streaming its panel once.
+// - Ragged shapes: any C, din, dout. Rows and columns past the edge are
+//   zero-filled in shared memory and not written. Where din or dout is not
+//   a multiple of 8 (a 16-byte copy would straddle a row) the tiles load
+//   element by element instead.
+// - f32 keeps full f32 (no TF32): a SIMT kernel, one block of 256 threads
+//   per (64 x 64 output tile, expert), each thread 4 x 4 outputs, din in
+//   tiles of 16 through shared memory.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// ---- bf16: tensor cores (mma.sync) ----------------------------------------
+
+constexpr int kBM = 64;    // rows of C per block
+constexpr int kBN = 128;   // columns of dout per block
+constexpr int kBK = 32;    // din per stage
+constexpr int kStages = 3;
+constexpr int kThreads = 128;
+constexpr int kLdA = kBK + 8;   // 80-byte rows
+constexpr int kLdB = kBN + 8;   // 272-byte rows
+constexpr int kStageElems = kBM * kLdA + kBK * kLdB;
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 bf16 matrices, transposed: with lane l addressing row
+// (l % 16) and column (l / 16) * 8 of a row-major (k, n) tile, r0/r1 are
+// the B fragment (b0, b1) of n-tile 0 and r2/r3 that of n-tile 1.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                                  uint32_t& r3, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Stage din tile [k0, k0 + 32) of the block's A rows and B columns.
+__device__ __forceinline__ void load_stage(__nv_bfloat16* as, __nv_bfloat16* bs,
+                                           const __nv_bfloat16* xe, const __nv_bfloat16* we,
+                                           int m0, int n0, int k0, int C, int din, int dout,
+                                           bool vec) {
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+  if (vec) {
+    // A: 64 rows x 4 chunks of 8; B: 32 rows x 16 chunks of 8.
+    for (int i = threadIdx.x; i < kBM * (kBK / 8); i += kThreads) {
+      const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
+      const bool ok = m0 + r < C && k0 + c < din;
+      const __nv_bfloat16* src = ok ? xe + static_cast<int64_t>(m0 + r) * din + k0 + c : xe;
+      cp_async16(as + r * kLdA + c, src, ok ? 16 : 0);
+    }
+    for (int i = threadIdx.x; i < kBK * (kBN / 8); i += kThreads) {
+      const int r = i / (kBN / 8), c = (i % (kBN / 8)) * 8;
+      const bool ok = k0 + r < din && n0 + c < dout;
+      const __nv_bfloat16* src = ok ? we + static_cast<int64_t>(k0 + r) * dout + n0 + c : we;
+      cp_async16(bs + r * kLdB + c, src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kBM * kBK; i += kThreads) {
+      const int r = i / kBK, c = i % kBK;
+      as[r * kLdA + c] = (m0 + r < C && k0 + c < din)
+                             ? xe[static_cast<int64_t>(m0 + r) * din + k0 + c]
+                             : zero;
+    }
+    for (int i = threadIdx.x; i < kBK * kBN; i += kThreads) {
+      const int r = i / kBN, c = i % kBN;
+      bs[r * kLdB + c] = (k0 + r < din && n0 + c < dout)
+                             ? we[static_cast<int64_t>(k0 + r) * dout + n0 + c]
+                             : zero;
+    }
+  }
+}
+
+// grid (ceil(C / 64), ceil(dout / 128), E)
+__global__ void __launch_bounds__(kThreads)
+gmm_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+               __nv_bfloat16* __restrict__ out, int C, int din, int dout, int vec) {
+  __shared__ __align__(16) __nv_bfloat16 smem[kStages * kStageElems];
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN, e = blockIdx.z;
+  const __nv_bfloat16* xe = x + static_cast<int64_t>(e) * C * din;
+  const __nv_bfloat16* we = w + static_cast<int64_t>(e) * din * dout;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;  // the warp's 32 x 64 piece
+  const int nk = (din + kBK - 1) / kBK;
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) {
+      __nv_bfloat16* st = smem + s * kStageElems;
+      load_stage(st, st + kBM * kLdA, xe, we, m0, n0, s * kBK, C, din, dout, vec);
+    }
+    cp_async_commit();
+  }
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile kt has landed; tile kt - 1 is consumed by all warps
+    const int nxt = kt + kStages - 1;
+    if (nxt < nk) {
+      __nv_bfloat16* st = smem + (nxt % kStages) * kStageElems;
+      load_stage(st, st + kBM * kLdA, xe, we, m0, n0, nxt * kBK, C, din, dout, vec);
+    }
+    cp_async_commit();
+
+    const __nv_bfloat16* as = smem + (kt % kStages) * kStageElems;
+    const __nv_bfloat16* bs = as + kBM * kLdA;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const __nv_bfloat16* ar = as + (wm + i * 16 + gid) * kLdA + kk + tig * 2;
+        a[i][0] = ld32(ar);
+        a[i][1] = ld32(ar + 8 * kLdA);
+        a[i][2] = ld32(ar + 8);
+        a[i][3] = ld32(ar + 8 * kLdA + 8);
+      }
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {  // n-tiles 2 jp and 2 jp + 1
+        uint32_t b0, b1, b2, b3;
+        ldmatrix_x4_trans(b0, b1, b2, b3,
+                          bs + (kk + (lane & 15)) * kLdB + wn + jp * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(acc[i][2 * jp], a[i][0], a[i][1], a[i][2], a[i][3], b0, b1);
+          mma_bf16(acc[i][2 * jp + 1], a[i][0], a[i][1], a[i][2], a[i][3], b2, b3);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  __nv_bfloat16* oe = out + static_cast<int64_t>(e) * C * dout;
+  const bool pair = (dout % 2) == 0;  // 4-byte stores stay aligned
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + wn + j * 8 + tig * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm + i * 16 + gid + h * 8;
+        if (row >= C) continue;
+        __nv_bfloat16* o = oe + static_cast<int64_t>(row) * dout + col;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (pair && col + 1 < dout) {
+          *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (col < dout) o[0] = __float2bfloat16(v0);
+          if (col + 1 < dout) o[1] = __float2bfloat16(v1);
+        }
+      }
+    }
+  }
+}
+
+// ---- f32: SIMT, full float32 ----------------------------------------------
+
+constexpr int kFT = 64;    // output tile edge
+constexpr int kFK = 16;    // din per tile
+constexpr int kFThreads = 256;
+
+// grid (ceil(C / 64), ceil(dout / 64), E)
+__global__ void __launch_bounds__(kFThreads)
+gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+               float* __restrict__ out, int C, int din, int dout) {
+  __shared__ float as[kFK][kFT + 4];  // transposed: as[k][m]
+  __shared__ float bs[kFK][kFT + 4];
+  const int m0 = blockIdx.x * kFT, n0 = blockIdx.y * kFT, e = blockIdx.z;
+  const float* xe = x + static_cast<int64_t>(e) * C * din;
+  const float* we = w + static_cast<int64_t>(e) * din * dout;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < din; k0 += kFK) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < kFT * kFK; i += kFThreads) {
+      const int m = i / kFK, k = i % kFK;
+      as[k][m] = (m0 + m < C && k0 + k < din)
+                     ? xe[static_cast<int64_t>(m0 + m) * din + k0 + k]
+                     : 0.0f;
+      const int kb = i / kFT, n = i % kFT;
+      bs[kb][n] = (k0 + kb < din && n0 + n < dout)
+                      ? we[static_cast<int64_t>(k0 + kb) * dout + n0 + n]
+                      : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kFK; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = as[k][ty + 16 * i];
+        b[i] = bs[k][tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+  float* oe = out + static_cast<int64_t>(e) * C * dout;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty + 16 * i;
+    if (row >= C) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx + 16 * j;
+      if (col < dout) oe[static_cast<int64_t>(row) * dout + col] = acc[i][j];
+    }
+  }
+}
+
+}  // namespace
+
+// xg (E, C, din), wg (E, din, dout), out (E, C, dout), one dtype (0:
+// float32, 1: bfloat16), row-major, contiguous, 16-byte aligned, on the
+// device of `stream`. Returns cudaGetLastError().
+extern "C" int moe_gmm(const void* xg, const void* wg, void* out, int dtype, int E, int C,
+                       int din, int dout, void* stream) {
+  if (E <= 0 || C <= 0 || dout <= 0) return 0;
+  if (din < 0 || E > 65535 || (C + kBM - 1) / kBM > 65535 || (dout + kFT - 1) / kFT > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    const int vec = (din % 8 == 0) && (dout % 8 == 0);
+    const dim3 grid((C + kBM - 1) / kBM, (dout + kBN - 1) / kBN, E);
+    gmm_mma_kernel<<<grid, kThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(xg),
+                                             static_cast<const __nv_bfloat16*>(wg),
+                                             static_cast<__nv_bfloat16*>(out), C, din, dout,
+                                             vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((C + kFT - 1) / kFT, (dout + kFT - 1) / kFT, E);
+  gmm_f32_kernel<<<grid, kFThreads, 0, s>>>(static_cast<const float*>(xg),
+                                            static_cast<const float*>(wg),
+                                            static_cast<float*>(out), C, din, dout);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -6,10 +6,12 @@ tensors; on CPU tensors its wrapper runs the plain version, and that only
 because the tensors lie on the CPU. There is no ``emulate`` mode: a PyTorch
 restatement of the kernel's tiling would prove nothing about the CUDA code.
 
-``set_default_impl`` flips the LLM zoo's attention (``attention``,
-``decode_attention``) between the kernels (``cuda``, the default) and the
-plain versions (``ref``), so a whole model can be checked against itself on
-the card; a call's own ``impl=`` wins.
+``set_default_impl`` flips the LLM zoo's kernels (``attention``,
+``decode_attention``, ``moe_gmm``, ``linear_scan``, ``rmsnorm``) between
+the kernels (``cuda``, the default) and the plain versions (``ref``), so a
+whole model can be checked against itself on the card; a call's own
+``impl=`` wins. ``linear_scan_step`` (one decode step) has no kernel, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -19,8 +21,11 @@ from typing import Optional
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import moe_gmm as _gmm
+from repro_torch.kernels import rmsnorm as _rmsnorm
 from repro_torch.kernels import sched_score
 from repro_torch.kernels import scatter_add as _scatter
+from repro_torch.kernels import ssm_scan as _scan
 
 VALID = ("ref", "cuda")
 _state = threading.local()
@@ -80,3 +85,42 @@ def decode_attention(q, k_cache, v_cache, length, impl: Optional[str] = None):
     if _resolve(impl) == "ref":
         return _decode.decode_attention_ref(q, k_cache, v_cache, length)
     return _decode.decode_attention(q, k_cache, v_cache, length)
+
+
+def moe_gmm(xg, wg, impl: Optional[str] = None):
+    """Grouped expert matmul, (E, C, din) x (E, din, dout) -> (E, C, dout);
+    see kernels/moe_gmm.py."""
+    if _resolve(impl) == "ref":
+        return _gmm.moe_gmm_ref(xg, wg)
+    return _gmm.moe_gmm(xg, wg)
+
+
+def linear_scan(q, k, v, decay, init_state=None, impl: Optional[str] = None,
+                want_final_state: bool = True):
+    """Gated linear recurrence over a sequence -> (y, (S, n) or None); see
+    kernels/ssm_scan.py. ``ref`` is the chunked plain form from a zero
+    state and the sequential oracle from ``init_state``; the kernel starts
+    from a zero state (prefill) and forms the final state only when
+    ``want_final_state``."""
+    if _resolve(impl) == "ref":
+        if init_state is not None:
+            return _scan.linear_scan_ref(q, k, v, decay, init_state)
+        y, state = _scan.linear_scan_chunked_ref(q, k, v, decay)
+        return y, (state if want_final_state else None)
+    if init_state is not None:
+        raise ValueError("the linear_scan kernel starts from a zero state "
+                         "(prefill); decode steps use linear_scan_step")
+    return _scan.linear_scan(q, k, v, decay, want_final_state)
+
+
+def linear_scan_step(q, k, v, decay, state):
+    """One decode step of linear_scan (plain only: O(1) work, no kernel)."""
+    return _scan.linear_scan_step(q, k, v, decay, state)
+
+
+def rmsnorm(x, scale, eps: float = 1e-6, impl: Optional[str] = None):
+    """Row-wise RMSNorm of x (..., d) by scale (d,); see
+    kernels/rmsnorm.py."""
+    if _resolve(impl) == "ref":
+        return _rmsnorm.rmsnorm_ref(x, scale, eps)
+    return _rmsnorm.rmsnorm(x, scale, eps)

@@ -1,4 +1,5 @@
-"""Serving loop: continuous-batched decode against a KV cache.
+"""Serving loop: continuous-batched decode against a KV and recurrent
+state.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --reduced --requests 16 --max-new 32 --device cpu
@@ -8,7 +9,9 @@ per-slot lengths, one fused ``serve_step`` per token across every slot
 (decode-time continuous batching: a finished slot is refilled from the
 queue at once), greedy sampling. Each request is one prompt token drawn
 from ``np.random.default_rng(0)`` and ``max_new`` emitted tokens; the
-queue is served from its end, as the reference pops it. ``serve`` returns
+queue is served from its end, as the reference pops it. A refilled slot
+starts at length 0 but keeps the recurrent state (SSD, mLSTM, sLSTM) its
+last request left, as in the reference. ``serve`` returns
 the tokens every request emitted and the step count; the emitted tokens
 stay on the device until the loop ends, so the loop never waits for the
 card.
@@ -38,6 +41,10 @@ REDUCED_MODULES = {
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
     "deepseek-67b": "repro_torch.configs.deepseek_67b",
     "glm4-9b": "repro_torch.configs.glm4_9b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "hymba-1.5b": "repro_torch.configs.hymba_1p5b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
 }
 
 

@@ -1,2 +1,2 @@
-"""The paper's CNN zoo (``cnn_zoo``) and the dense LLM zoo (``layers``,
-``attention``, ``transformer``) in PyTorch."""
+"""The paper's CNN zoo (``cnn_zoo``) and the LLM zoo (``layers``,
+``attention``, ``moe``, ``ssm``, ``transformer``) in PyTorch."""

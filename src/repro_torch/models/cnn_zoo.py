@@ -53,7 +53,7 @@ def _fc_init(rng, c_in, c_out, device):
 
 
 def cnn_init(cfg: ModelConfig, seed: int = 0,
-             device="cpu") -> List[Dict]:
+             device="cuda") -> List[Dict]:
     """The reference's initial params bit for bit (the same numpy draws,
     rounded to float32 once), as tensors on ``device``."""
     rng = np.random.default_rng(seed)

@@ -4,6 +4,11 @@ Params are plain dicts of tensors. Initialisers take a numpy Generator and
 make the reference's draws in the reference's order, rounded to the param
 dtype once, so ``lm_init`` is bit-identical to ``repro.models``'.
 
+Inside ``abstract_init()`` the initialisers draw nothing and return
+tensors on the ``meta`` device (shape and dtype only), as the reference's
+return ``ShapeDtypeStruct``s: ``lm_param_shapes`` builds a model's tree
+that way, with no host allocation.
+
 ``use_param`` casts a weight to the compute dtype, as the reference does on
 every call. Where the weight is already in that dtype the cast is a no-op,
 so a model may be handed a compute copy made once (``compute_params`` in
@@ -13,6 +18,9 @@ re-casting every f32 weight.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -20,6 +28,23 @@ import torch.nn.functional as F
 from repro_torch.config.base import ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+_abstract = threading.local()
+
+
+@contextlib.contextmanager
+def abstract_init():
+    """Inside this context every initialiser returns a ``meta`` tensor and
+    draws nothing from its generator."""
+    _abstract.on = True
+    try:
+        yield
+    finally:
+        _abstract.on = False
+
+
+def is_abstract() -> bool:
+    return getattr(_abstract, "on", False)
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -31,11 +56,19 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def normal(rng: np.random.Generator, shape, scale, dtype) -> torch.Tensor:
+    if is_abstract():
+        return torch.empty(shape, dtype=dtype, device="meta")
     return torch.as_tensor(rng.normal(0.0, scale, shape)).to(dtype)
 
 
 def ones(shape, dtype) -> torch.Tensor:
-    return torch.ones(shape, dtype=dtype)
+    return torch.ones(shape, dtype=dtype,
+                      device="meta" if is_abstract() else None)
+
+
+def zeros(shape, dtype) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype,
+                       device="meta" if is_abstract() else None)
 
 
 def use_param(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -1,8 +1,11 @@
-"""The CUDA kernels (plan scoring, compressed-FedAvg scatter-add) against
-their plain PyTorch versions, on the card. Marked ``requires_cuda``: without a card (or nvcc) every test skips,
-decided inside the fixture. Run on a GPU machine with
+"""The CUDA kernels (plan scoring, compressed-FedAvg scatter-add, flash
+and decode attention, the MoE grouped matmul, the linear scan, RMSNorm)
+against their plain PyTorch versions, on the card. Marked
+``requires_cuda``: without a card (or nvcc) every test skips, decided
+inside the fixture. Run on a GPU machine with
 
-    PYTHONPATH=src python -m pytest -q -m requires_cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q -m requires_cuda \
+        tests/test_torch_cuda.py
 
 Imports neither jax nor the reference (the GPU machine need not have them).
 plan_stats: columns 0 and 1 must be exact; column 2 within 1e-5 * max(1,
@@ -271,3 +274,127 @@ def test_reduced_model_kernels_match_plain_on_card(cuda):
     finally:
         ops.set_default_impl("cuda")
     np.testing.assert_allclose(got.cpu(), exp.cpu(), atol=1e-4, rtol=1e-4)
+
+
+# ---- MoE grouped matmul, linear scan, RMSNorm ----
+# The reference's tolerances: moe_gmm 1e-4 in float32 and 2e-2 in bfloat16
+# (tests/test_kernels_moe.py), linear_scan 2e-4 (tests/test_kernels_ssm.py),
+# rmsnorm 1e-5 and 2e-2 (tests/test_kernels_rmsnorm.py). The weights are
+# scaled by 1 / sqrt(din) as the models draw them.
+
+from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import ssm_scan as ss  # noqa: E402
+
+GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,din,dout", [
+    (4, 96, 192, 320), (2, 128, 256, 256), (8, 64, 128, 512),
+    (1, 256, 512, 128), (3, 100, 130, 70), (16, 5, 512, 384),
+    (2, 1, 64, 136)])
+def test_moe_gmm_matches_plain(cuda, dtype, E, C, din, dout):
+    g = torch.Generator(device=cuda).manual_seed(E * 100 + C)
+    x = randn(g, (E, C, din), dtype)
+    w = (torch.randn((E, din, dout), device=cuda, generator=g)
+         / din ** 0.5).to(dtype)
+    before = gmm.launches
+    got = gmm.moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert gmm.launches == before + 1 and got.dtype == dtype
+    exp = gmm.moe_gmm_ref(x, w)
+    tol = GMM_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu(), exp.float().cpu(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,Dk,Dv,lo,hi", [
+    (2, 128, 2, 16, 32, 0.6, 1.0), (1, 333, 3, 16, 128, 0.6, 1.0),
+    (2, 200, 2, 8, 16, 0.01, 0.2), (1, 130, 1, 512, 512, 0.9, 1.0),
+    (2, 64, 4, 64, 40, 0.5, 1.0)])
+def test_linear_scan_matches_plain(cuda, dtype, B, S, H, Dk, Dv, lo, hi):
+    g = torch.Generator(device=cuda).manual_seed(S + Dk)
+    q = randn(g, (B, S, H, Dk), dtype)
+    k = (0.5 * torch.randn((B, S, H, Dk), device=cuda, generator=g)).to(dtype)
+    v = randn(g, (B, S, H, Dv), dtype)
+    a = lo + (hi - lo) * torch.rand((B, S, H), device=cuda, generator=g)
+    before = ss.launches
+    got, (S_f, n_f) = ss.linear_scan(q, k, v, a)
+    torch.cuda.synchronize()
+    assert ss.launches == before + 1 and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    exp, (S_e, n_e) = ss.linear_scan_chunked_ref(q.float(), k.float(),
+                                                 v.float(), a)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu(), exp.cpu(), atol=tol,
+                               rtol=tol)
+    for s_, e in ((S_f, S_e), (n_f, n_e)):
+        np.testing.assert_allclose(s_.cpu(), e.cpu(), atol=2e-4, rtol=2e-4)
+
+
+def test_linear_scan_strided_views(cuda):
+    """q and k sliced out of one projection, as the SSD heads do."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qk = randn(g, (2, 100, 4, 32), torch.bfloat16)
+    v = randn(g, (2, 100, 4, 64), torch.bfloat16)
+    a = 0.5 + 0.5 * torch.rand((2, 100, 4), device=cuda, generator=g)
+    got, state = ss.linear_scan(qk[..., 16:], qk[..., :16], v, a,
+                                want_final_state=False)
+    assert state is None
+    exp, _ = ss.linear_scan_chunked_ref(qk[..., 16:].float(),
+                                        qk[..., :16].float(), v.float(), a)
+    np.testing.assert_allclose(got.float().cpu(), exp.cpu(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8192, 2048), (16, 6144), (37, 1600),
+                                   (3, 5, 7, 64), (5, 100)])
+def test_rmsnorm_matches_plain(cuda, dtype, shape):
+    g = torch.Generator(device=cuda).manual_seed(shape[-1])
+    x = (2 * torch.randn(shape, device=cuda, generator=g)).to(dtype)
+    s = 1 + 0.1 * torch.randn(shape[-1:], device=cuda, generator=g)
+    before = rn.launches
+    got = rn.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rn.launches == before + 1 and got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu(),
+                               rn.rmsnorm_ref(x, s).float().cpu(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b",
+                                  "hymba-1.5b", "xlstm-350m"])
+def test_reduced_moe_hybrid_ssm_match_plain_on_card(cuda, arch):
+    """A reduced MoE, hybrid or SSM model in f32 on the card: prefill and
+    decode through the kernels against the same model under
+    ``ops.set_default_impl("ref")``; MoE routing ids identical."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import REDUCED_MODULES
+
+    cfg = dataclasses.replace(
+        importlib.import_module(REDUCED_MODULES[arch]).reduced(),
+        dtype="float32")
+    params = tfm.lm_init(cfg, seed=0, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 70), device=cuda)
+    state = tfm.init_decode_state(cfg, 2, 16, device="cuda")
+    ref_state = tfm.init_decode_state(cfg, 2, 16, device="cuda")
+    length = torch.tensor([0, 5], dtype=torch.int32, device=cuda)
+    got = tfm.lm_apply(cfg, params, toks)
+    got_step = tfm.lm_decode_step(cfg, params, state, toks[:, 0], length)[0]
+    ops.set_default_impl("ref")
+    try:
+        exp = tfm.lm_apply(cfg, params, toks)
+        exp_step = tfm.lm_decode_step(cfg, params, ref_state, toks[:, 0],
+                                      length)[0]
+    finally:
+        ops.set_default_impl("cuda")
+    np.testing.assert_allclose(got.cpu(), exp.cpu(), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got_step.cpu(), exp_step.cpu(), atol=1e-4,
+                               rtol=1e-4)

@@ -174,8 +174,8 @@ def test_reference_result_json_replays(tmp_path):
     (dict(fleet={"num_shards": 2}), "module 7"),
     (dict(scheduler="bods"), "module 5"),
     (dict(scheduler="genetic", search_backend="fused"), "module 5"),
-    (dict(runtime="real_fl", jobs=(JobSpec(name="lm", model="dbrx-132b"),)),
-     "module 10"),
+    (dict(runtime="real_fl",
+          jobs=(JobSpec(name="lm", model="musicgen-medium"),)), "module 10"),
     (dict(runtime="real_fl", runtime_kwargs={},
           jobs=(JobSpec(name="lm", model="qwen3-8b"),)), "module 10"),
 ])
@@ -187,22 +187,22 @@ def test_axes_not_ported_raise(change, module):
 
 
 def test_model_other_than_stub_raises():
-    """Only the MoE, hybrid, SSM, audio and VLM arch ids still raise
-    (ROADMAP module 10); the paper's CNN zoo builds and trains
-    (tests/test_torch_runtime.py)."""
+    """Only the audio and VLM arch ids still raise (ROADMAP module 10); the
+    paper's CNN zoo builds and trains (tests/test_torch_runtime.py)."""
     spec = presets.get_preset("real-fl-two-job", scheduler="greedy")
     exp = spec.build(device="cpu")
     names = [j.config.model.name for j in exp.engine.jobs]
     assert names == ["paper-lenet5", "paper-cnn-b"]
-    lm = spec.replace(jobs=(JobSpec(name="lm", model="dbrx-132b"),))
+    lm = spec.replace(jobs=(JobSpec(name="lm", model="musicgen-medium"),))
     with pytest.raises(NotImplementedError, match="module 10"):
         lm.build(device="cpu")
 
 
-@pytest.mark.parametrize("model", ["qwen3-8b", "deepseek-67b"])
+@pytest.mark.parametrize("model", ["qwen3-8b", "deepseek-67b", "dbrx-132b",
+                                   "hymba-1.5b", "xlstm-350m"])
 def test_synthetic_preset_with_dense_llm_job_identical(model):
-    """A dense LLM id now resolves in both packages: a synthetic-runtime
-    run with such a job gives the reference's records."""
+    """A dense, MoE, hybrid or SSM LLM id resolves in both packages: a
+    synthetic-runtime run with such a job gives the reference's records."""
     ref_spec, port_spec = twin_specs("quickstart", "greedy", max_rounds=6)
     jobs = (JobSpec(name="lm", model=model, max_rounds=6),) + tuple(
         port_spec.jobs[1:])
@@ -226,6 +226,9 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch.launch.serve, repro_torch.launch.steps\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.decode_attention\n"
+        "import repro_torch.kernels.moe_gmm, repro_torch.kernels.ssm_scan\n"
+        "import repro_torch.kernels.rmsnorm\n"
+        "import repro_torch.models.moe, repro_torch.models.ssm\n"
         "import repro_torch.config.shapes\n"
         "from repro_torch.launch.serve import load_config, serve\n"
         "from repro_torch.models.transformer import lm_init\n"
@@ -233,6 +236,10 @@ def test_port_imports_neither_jax_nor_reference():
         "res = serve(cfg, lm_init(cfg, device='cpu'), requests=3, slots=2,"
         " max_new=3, cache_len=8, device='cpu')\n"
         "assert res.steps == 6, res.steps\n"
+        "for a in ('dbrx-132b', 'hymba-1.5b', 'xlstm-350m'):\n"
+        "    c = load_config(a, reduced=True)\n"
+        "    serve(c, lm_init(c, device='cpu'), requests=2, slots=2,"
+        " max_new=2, cache_len=8, device='cpu')\n"
         "r2 = get_preset('real-fl-two-job', scheduler='greedy', rounds=1,"
         " num_devices=10).replace(runtime_kwargs={'samples_per_job': 400,"
         " 'eval_samples': 40}).run(device='cpu')\n"

@@ -320,21 +320,21 @@ def test_local_train_batch_matches_reference(W, batch_size):
         ref_cnn_init(ref_cnn_b(), seed=0), ref_cnn_b(), jnp.asarray(x),
         jnp.asarray(y), 2, batch_size, 0.05)
     got = runtime._local_train_batch(
-        cnn_init(cnn_b(), seed=0), cnn_b(), t(x), t(y).long(), 2,
-        batch_size, 0.05)
+        cnn_init(cnn_b(), seed=0, device="cpu"), cnn_b(), t(x), t(y).long(),
+        2, batch_size, 0.05)
     scale = max(float(np.abs(np.asarray(a)).max())
                 for a in jax.tree_util.tree_leaves(ref))
     assert_trees_close(ref, got, rtol=0, atol=1e-5 * scale)
-    one = runtime._local_train_one(cnn_init(cnn_b(), seed=0), cnn_b(),
-                                   t(x[1]), t(y[1]).long(), 2, batch_size,
-                                   0.05)
+    one = runtime._local_train_one(cnn_init(cnn_b(), seed=0, device="cpu"),
+                                   cnn_b(), t(x[1]), t(y[1]).long(), 2,
+                                   batch_size, 0.05)
     for a, b in zip(tree_leaves(got), tree_leaves(one)):
         np.testing.assert_allclose(a[1].numpy(), b.numpy(), rtol=0,
                                    atol=1e-5 * scale)
 
 
 def test_local_train_width0_shard_is_identity():
-    params = cnn_init(cnn_b(), seed=0)
+    params = cnn_init(cnn_b(), seed=0, device="cpu")
     x = torch.zeros((0,) + cnn_b().input_shape)
     y = torch.zeros((0,), dtype=torch.int64)
     out = runtime._local_train_one(params, cnn_b(), x, y, 3, 32, 0.05)
