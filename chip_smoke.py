@@ -8,7 +8,9 @@ reference package. Every phase prints one JSON line; any failure exits
 non-zero with a traceback, and no phase's failure is caught.
 
 1. device  — the card's name and power limit (``nvidia-smi``) and the
-   kernel build, from the checkout's sources, one ``nvcc`` per source.
+   kernel build, from the checkout's sources, one ``nvcc`` per source, with
+   each library's build seconds and, per compiled function, the registers,
+   spills and performance warnings ``ptxas`` reports.
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it and at ragged and edge-case shapes;
    columns 0 and 1 of ``plan_stats`` exact, column 2 within
@@ -55,14 +57,17 @@ non-zero with a traceback, and no phase's failure is caught.
    4096) and one layer at the decode_32k shape (B = 128, T = 32,768, bf16
    only: its caches are 17.2 GB); MQA, MHA, G = 4 and G = 16, D = 64 and
    256, S and T that are not powers of two, lengths 0, 1 and T with rows
-   past each length poisoned, a 1024 sliding window and non-causal. Times
-   of the kernel, the plain version and one ``scaled_dot_product_attention``
-   call (the library yardstick, never called by the port), beside the
-   bound; the flash autograd.Function's gradient against the plain one.
+   past each length poisoned, a 1024 sliding window (hymba-1.5b's prefill
+   among them) and non-causal. Each flash row names the variant
+   ``kernel_variant`` picked (its count must advance) and its TFLOP/s.
+   Times of the kernel, the plain version and one
+   ``scaled_dot_product_attention`` call (the library yardstick, never
+   called by the port), beside the bound; the flash autograd.Function's
+   gradient against the plain one.
 7. lm-serve — qwen3-1.7b at full width (28 layers, random weights from
    seed 0) through the port's entry points on the card: ``lm_init``, one
    ``make_prefill_step`` call on (2, 4096) tokens (flash launches exactly
-   28 times), the ``launch/serve.py`` loop (32 requests, 16 slots, 32 new
+   28 times, all the wgmma variant), the ``launch/serve.py`` loop (32 requests, 16 slots, 32 new
    tokens, a 4096-row cache; decode launches 28 times per step; every
    request answered), one timed decode step at a cache of about 4000 rows
    (it and one prefill call split by ``torch.profiler`` into device busy
@@ -77,7 +82,9 @@ non-zero with a traceback, and no phase's failure is caught.
    f32 and 2e-2 in bf16; rmsnorm 1e-5 and 2e-2), each bf16 output row also
    within ``BF16_ROW_RTOL`` of the plain version run in f32: dbrx-132b's
    prefill (C = 2560) and decode (C = 5) expert shapes, kimi-k2's (384
-   experts, C = 214 and 1), the unaligned (3, 100, 130, 70), E = 1, C = 1;
+   experts, C = 214 and 1), the unaligned (3, 100, 130, 70), C = 70 (a
+   partial 128-row tile), E = 1, C = 1, each row with its variant, TFLOP/s
+   and largest difference from ``torch.bmm``'s output;
    hymba's (2, 4096, 25 heads, 16 x 128) and xlstm's 512 x 512 state at
    (1, 1024) and (2, 4096), S = 333 and 1000, strong decay; norms of
    (8192, 2048), (8192, 6144), (16, 6144), 4097 rows of 1600, d = 100.
@@ -86,7 +93,8 @@ non-zero with a traceback, and no phase's failure is caught.
 9. lm-serve-2 — the MoE, hybrid and SSM paths through the port's entry
    points: dbrx-132b at full width with 2 of its 40 layers (its tree from
    ``lm_param_shapes``, drawn on the card), one (2, 4096) prefill
-   (``moe_gmm`` 3 launches a layer, flash 1), the serve loop of phase 7
+   (``moe_gmm`` 3 launches a layer, flash 1, every one of them the wgmma
+   variant), the serve loop of phase 7
    (3 ``moe_gmm`` and 1 decode launch per layer and step), a long-cache
    step, ``torch.profiler`` splits and the bf16 model against itself under
    ``set_default_impl("ref")`` with the share of routings that agree (the
@@ -129,6 +137,31 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(report: str) -> dict:
+    """Per compiled function of an ``nvcc -Xptxas -v`` report: its spill
+    line (stack frame, spill stores and loads in bytes), registers, and
+    any performance warning ptxas printed for it."""
+    import re
+
+    out, fn = {}, None
+    for line in report.splitlines():
+        warn = re.search(r"\(C\d+\) (.*) for the function '(\w+)'", line)
+        if warn:
+            out.setdefault(warn.group(2), {}).setdefault(
+                "warnings", []).append(warn.group(1))
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            fn = entry.group(1)
+            out.setdefault(fn, {})
+        elif fn and "spill stores" in line:
+            out[fn]["spills"] = line.strip()
+        elif fn and "Used" in line and "registers" in line:
+            out[fn]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                 line).group(1))
+            fn = None
+    return out
 
 
 SLEEP_CYCLES = 100_000_000    # ~50-70 ms of GPU clock
@@ -768,8 +801,12 @@ FLASH_CASES = [
     ("G=4 (qwen3-8b)", 1, 2048, 32, 8, 128, True, None, ("bfloat16",), False),
     ("G=16 (glm4-9b)", 1, 1024, 32, 2, 128, True, None,
      ("bfloat16", "float32"), False),
+    ("hymba-1.5b prefill (2, 4096), window 1024", 2, 4096, 25, 5, 64, True,
+     1024, ("bfloat16",), True),
     ("window 1024, 25/5 heads, D=64 (hymba)", 1, 3000, 25, 5, 64, True, 1024,
      ("bfloat16", "float32"), False),
+    ("D=64, S=200", 2, 200, 8, 2, 64, True, None, ("bfloat16", "float32"),
+     False),
     ("D=256, S=1000", 1, 1000, 8, 4, 256, True, None,
      ("bfloat16", "float32"), False),
     ("non-causal", 2, 500, 16, 8, 128, False, None, ("bfloat16", "float32"),
@@ -824,6 +861,21 @@ def sdpa_decode(torch, q, k, v, length):
         attn_mask=mask)
 
 
+def gmm_as(torch, gmm, variant, x, w):
+    """One launch of the named MoE grouped-matmul variant through the C
+    entry, on the wrapper's inputs: the variant ``kernel_variant`` passes
+    over, timed beside the one it picks (never counted in the wrapper's
+    launches)."""
+    E, C, din = x.shape
+    out = torch.empty((E, C, w.shape[2]), dtype=x.dtype, device=x.device)
+    rc = gmm._entry()(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                      gmm.DTYPES[x.dtype], gmm.VARIANTS.index(variant), E, C,
+                      din, w.shape[2], torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"moe_gmm {variant} launch failed: CUDA error {rc}")
+    return out
+
+
 def phase_lm_kernels(torch, dev) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
@@ -837,9 +889,14 @@ def phase_lm_kernels(torch, dev) -> dict:
             q = torch.randn((B, S, H, D), device=dev, generator=g, dtype=dt)
             k = torch.randn((B, S, KV, D), device=dev, generator=g, dtype=dt)
             v = torch.randn((B, S, KV, D), device=dev, generator=g, dtype=dt)
+            variant = fa.kernel_variant(dt, B, S, H, KV, D, window)
+            before = fa.launches_by_variant[variant]
             got = fa.flash_attention(q, k, v, causal=causal, window=window)
             exp = fa.attention_ref(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
+            if fa.launches_by_variant[variant] != before + 1:
+                raise AssertionError(f"flash {label} {dname}: the {variant} "
+                                     "variant did not launch")
             err = attn_close(got, exp, ATTN_TOL[dname][0],
                              f"flash {label} {dname}")
             del exp
@@ -857,25 +914,36 @@ def phase_lm_kernels(torch, dev) -> dict:
             plain_ms = cuda_time_ms(
                 torch, lambda: fa.attention_ref(q, k, v, causal, window),
                 inner=1 if big else 3, reps=3)
-            library_ms = None
-            if window is None:  # SDPA has no window argument
-                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-                library_ms = cuda_time_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=causal, enable_gqa=True),
-                    inner=3 if big else 10, reps=5)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa = dict(is_causal=causal, enable_gqa=True)
+            if window is not None:  # a boolean mask, built once; SDPA's
+                # fused paths take no mask with enable_gqa, so K and V are
+                # expanded to the H heads once, outside the timing
+                idx = torch.arange(S, device=dev)
+                keep = idx[:, None] - idx[None, :] < window
+                if causal:
+                    keep &= idx[:, None] >= idx[None, :]
+                kt, vt = (x.repeat_interleave(H // KV, dim=1)
+                          for x in (kt, vt))
+                sdpa = dict(attn_mask=keep)
+            library_ms = cuda_time_ms(
+                torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                              **sdpa),
+                inner=3 if big else 10, reps=5)
+            del qt, kt, vt, sdpa
             pairs = flash_pairs(S, causal, window)
             nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * \
                 k.element_size()
             bound_ms, bound_by = attn_bound(nbytes, 4 * D * pairs * H * B,
                                             dname)
             flash_rows.append(dict(
-                label=label, dtype=dname, main=main,
+                label=label, dtype=dname, main=main, variant=variant,
                 shape=[B, S, H, KV, D], causal=causal, window=window,
                 max_abs_err=err, bf16_row_err_vs_f32=row_err,
                 kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                pairs=pairs * B * H))
+                pairs=pairs * B * H,
+                tflops=4 * D * pairs * H * B / (kernel_ms * 1e9)))
             del q, k, v
             torch.cuda.empty_cache()
     for label, B, H, KV, D, T, kind, dtypes, main in decode_cases():
@@ -980,11 +1048,11 @@ def filled_state(torch, dev, cfg, B, T, seed):
 
 
 def kernel_class(name: str) -> str:
-    if "flash_mma_kernel" in name or "flash_f32_kernel" in name:
+    if any(f"flash_{v}_kernel" in name for v in ("wgmma", "mma", "f32")):
         return "flash_attention"
     if "decode_kernel" in name or "combine_kernel" in name:
         return "decode_attention"
-    if "gmm_mma_kernel" in name or "gmm_f32_kernel" in name:
+    if any(f"gmm_{v}_kernel" in name for v in ("wgmma", "mma", "f32")):
         return "moe_gmm"
     if "scan_kernel<" in name or "scan_kernelI" in name:
         return "linear_scan"
@@ -1089,12 +1157,17 @@ def phase_lm_serve(torch, dev) -> dict:
 
     # The main path, with both counts at 0 just before and read just after.
     fa.launches = da.launches = 0
+    fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits = prefill(cparams, {"tokens": toks})
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     flash_launches = fa.launches
+    flash_variants = dict(fa.launches_by_variant)
+    if flash_variants["wgmma"] != flash_launches:
+        raise AssertionError(f"the prefill's flash launches were not all "
+                             f"the wgmma variant: {flash_variants}")
     res = serve(cfg, cparams, device=dev, **SERVE)
     decode_launches, flash_after = da.launches, fa.launches
     if flash_launches != L or flash_after != L:
@@ -1191,7 +1264,8 @@ def phase_lm_serve(torch, dev) -> dict:
         prefill=dict(batch=B, seq=S, first_call_s=prefill_s,
                      ms=prefill_ms[0],
                      tokens_per_s=B * S / (prefill_ms[0] / 1e3),
-                     flash_launches=flash_launches),
+                     flash_launches=flash_launches,
+                     flash_launches_by_variant=flash_variants),
         serve=dict(SERVE, steps=res.steps, tokens=served, wall_s=res.seconds,
                    tokens_per_s=served / res.seconds,
                    ms_per_step=res.seconds / res.steps * 1e3,
@@ -1241,6 +1315,7 @@ def gmm_cases():
         ("kimi-k2 decode (16 slots), gate/up", 384, capacity(kimi, 16),
          kimi.d_model, kimi.d_ff, ("bfloat16",), False),
         ("unaligned (3, 100, 130, 70)", 3, 100, 130, 70, BOTH, False),
+        ("C = 70 (3, 70, 256, 384)", 3, 70, 256, 384, BOTH, False),
         ("E = 1", 1, 256, 512, 128, BOTH, False),
         ("C = 1", 8, 1, 1024, 1024, BOTH, False),
     ]
@@ -1305,10 +1380,18 @@ def phase_lm_kernels_2(torch, dev) -> dict:
             x = torch.randn((E, C, din), device=dev, generator=g, dtype=dt)
             w = torch.randn((E, din, dout), device=dev, generator=g, dtype=dt)
             w.mul_(din ** -0.5)           # the models' 1/sqrt(fan-in)
+            variant = gmm.kernel_variant(dt, E, C, din, dout)
+            before = gmm.launches_by_variant[variant]
             got = gmm.moe_gmm(x, w)
             exp = gmm.moe_gmm_ref(x, w)
             torch.cuda.synchronize()
+            if gmm.launches_by_variant[variant] != before + 1:
+                raise AssertionError(f"moe_gmm {label} {dname}: the "
+                                     f"{variant} variant did not launch")
             err = attn_close(got, exp, GMM_TOL[dname], f"moe_gmm {label}")
+            # the library call's output beside the kernel's (0: bit for bit)
+            vs_library = float((got.float() - torch.bmm(x, w).float())
+                               .abs().max())
             del exp
             row_err = None
             if dname == "bfloat16":
@@ -1327,15 +1410,25 @@ def phase_lm_kernels_2(torch, dev) -> dict:
             library_ms = cuda_time_ms(torch, lambda: torch.bmm(x, w),
                                       inner=1 if big else 10,
                                       reps=3 if big else 5)
+            # the bf16 variant the rule passes over, where it can serve too
+            other = {"mma": "wgmma", "wgmma": "mma"}.get(variant)
+            other_ms = None
+            if other and din % 8 == 0 and dout % 8 == 0:
+                other_ms = cuda_time_ms(
+                    torch, lambda: gmm_as(torch, gmm, other, x, w),
+                    inner=1 if big else 10, reps=3 if big else 5)
             nbytes = (E * C * din + E * din * dout + E * C * dout) * \
                 x.element_size()
             bound_ms, bound_by = attn_bound(nbytes, flops, dname)
             gmm_rows.append(dict(
-                label=label, dtype=dname, main=main, shape=[E, C, din, dout],
-                max_abs_err=err, bf16_row_err_vs_f32=row_err,
+                label=label, dtype=dname, main=main, variant=variant,
+                shape=[E, C, din, dout], max_abs_err=err,
+                max_abs_diff_vs_library=vs_library,
+                bf16_row_err_vs_f32=row_err,
                 kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                tflops=flops / (kernel_ms * 1e9)))
+                other_variant=other if other_ms is not None else None,
+                other_ms=other_ms, tflops=flops / (kernel_ms * 1e9)))
             del x, w
             torch.cuda.empty_cache()
     for label, B, S, H, Dk, Dv, (lo, hi), dtypes, main in SCAN_CASES:
@@ -1672,11 +1765,27 @@ def drive_path(torch, dev, cfg, cparams, shape, per_prefill, per_step, g):
 
     for c in counters.values():
         c.launches = 0
+    for c in (fa, gmm):
+        c.launches_by_variant = dict.fromkeys(c.VARIANTS, 0)
     first_ms, _ = timed_ms(torch, lambda: check_logits(
         cfg, prefill(cparams, {"tokens": toks}), (B, S)))
     at_prefill = {n: c.launches for n, c in counters.items()}
+    variants_at_prefill = {n: dict(c.launches_by_variant)
+                           for n, c in (("flash_attention", fa),
+                                        ("moe_gmm", gmm))}
+    for n, by in variants_at_prefill.items():  # bf16 prefill: Hopper kernels
+        if by["wgmma"] != at_prefill[n]:
+            raise AssertionError(f"{cfg.name}: the prefill's {n} launches "
+                                 f"were not all the wgmma variant: {by}")
     res, serve_row = serve_checked(cfg, cparams, dev, serve)
     at_end = {n: c.launches for n, c in counters.items()}
+    variants_at_end = {n: dict(c.launches_by_variant)
+                       for n, c in (("flash_attention", fa),
+                                    ("moe_gmm", gmm))}
+    by = variants_at_end["moe_gmm"]  # steps too: every width is aligned
+    if by["wgmma"] != at_end["moe_gmm"]:
+        raise AssertionError(f"{cfg.name}: the moe_gmm launches were not "
+                             f"all the wgmma variant: {by}")
     for n in counters:
         want = per_prefill.get(n, 0)
         if at_prefill[n] != want or \
@@ -1703,8 +1812,10 @@ def drive_path(torch, dev, cfg, cparams, shape, per_prefill, per_step, g):
     record = dict(
         arch=cfg.name, layers=cfg.num_layers,
         prefill=dict(batch=B, seq=S, first_call_ms=first_ms, ms=ms,
-                     tokens_per_s=B * S / (ms / 1e3), launches=at_prefill),
-        serve=dict(serve_row, launches=at_end),
+                     tokens_per_s=B * S / (ms / 1e3), launches=at_prefill,
+                     launches_by_variant=variants_at_prefill),
+        serve=dict(serve_row, launches=at_end,
+                   launches_by_variant=variants_at_end),
         long_cache_step=dict(slots=SERVE["slots"], lengths=LONG_CACHE,
                              ms=step_ms, profile=step_split),
         prefill_profile=prefill_split)
@@ -1899,7 +2010,9 @@ def main(argv=None) -> int:
                   count=torch.cuda.device_count(), torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
                   libraries=[p.name for p in libs.values()],
-                  ptxas={n: log["ptxas"].strip().splitlines()[-2:]
+                  build_seconds={n: log["seconds"]
+                                 for n, log in build.build_log.items()},
+                  ptxas={n: ptxas_report(log["ptxas"])
                          for n, log in build.build_log.items()})
     emit(device)
 
@@ -1955,7 +2068,9 @@ def main(argv=None) -> int:
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=at["kernel_ms"], plain_ms=at["plain_ms"],
             bound_ms=at["bound_ms"], bound_by=at["bound_by"],
-            library_ms=at["library_ms"], shapes=rows))
+            library_ms=at["library_ms"], shapes=rows,
+            **({"variant": at["variant"], "tflops": at["tflops"]}
+               if name == "flash_attention" else {})))
     scan_launches = sum(lm_serve2[m]["serve"]["launches"]["linear_scan"]
                         for m in ("hymba", "xlstm"))
     for name, cu, line, label, launches in (
@@ -1976,7 +2091,9 @@ def main(argv=None) -> int:
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=at["kernel_ms"], plain_ms=at["plain_ms"],
             bound_ms=at["bound_ms"], bound_by=at["bound_by"],
-            library_ms=at["library_ms"], shapes=rows))
+            library_ms=at["library_ms"], shapes=rows,
+            **({"variant": at["variant"], "tflops": at["tflops"]}
+               if name == "moe_gmm" else {})))
     emit(dict(phase="kernels", kernels=kernels))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

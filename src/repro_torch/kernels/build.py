@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (``extern "C"``), loaded with ``ctypes``: no PyTorch
 headers, so a build takes seconds. Libraries go to
 ``<checkout>/build/repro_torch/<name>-<hash>.so``, keyed by a hash of the
-source and the flags, so an edited source never loads a stale library.
+source, every shared header (``csrc/*.cuh``) and the flags, so an edited
+source or header never loads a stale library.
 ``build_all`` starts one ``nvcc`` per source, all at once, and waits for
 them. Nothing here runs at import time: the CPU tests import every module
 of the package on a machine with no ``nvcc``.
@@ -49,9 +50,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str, out: Path):

@@ -16,35 +16,56 @@
 // 4 * D flops per unmasked (query, key) pair, 137 GFLOP, 0.14 ms at the
 // 989 TFLOP/s of the bf16 tensor cores; q, k, v and out are 100 MB, 0.03 ms.
 //
-// Design:
-// - bf16 inputs (the working type) run on the tensor cores with
-//   mma.sync.m16n8k16 (bf16 in, f32 accumulate), FlashAttention-2 style:
-//   one block of 4 warps per (64 query rows, head, batch), 16 rows a warp;
-//   K and V tiles of 64 keys are staged in shared memory (rows padded by 8
-//   elements so the fragment loads do not collide on banks); S = Q K^T, the
-//   mask, the online softmax (row max and sum across the 4 threads of a
-//   row by shuffles) and O = O * alpha + P V all stay in registers. The
-//   probabilities enter the PV product rounded to bf16, the cast point of
-//   the reference oracle (ref.attention casts p to q's dtype); l sums the
-//   f32 probabilities. A later PR can add TMA loads and wgmma.
-// - f32 inputs keep full f32 (no TF32): a SIMT kernel, one block per (16
-//   query rows, head, batch), 8 threads a row, each owning D / 8 columns of
-//   q and of the accumulator; keys stream through shared memory in tiles of
-//   32 with a per-key online softmax.
-// - GQA is indexing: query head h reads kv-head h / G; no replication.
-// - Key tiles that every row of the block masks out (above the causal
-//   diagonal, outside the window) are skipped; the causal blocks with the
-//   most keys are scheduled first. Any S: the ragged edge is masked in
-//   place (zero-filled rows, mask on the key index), with no block halving.
+// Three variants; the caller names one (kernels/flash_attention.py::
+// kernel_variant) and a variant that cannot serve the shape is refused,
+// never replaced:
+// - wgmma (bf16, D in {64, 128}; every model's prefill): FlashAttention-3
+//   shaped. One block of three warpgroups per (128 query rows, head,
+//   batch). A producer warp loads the Q tile once and streams K and V
+//   tiles of 128 keys through a 2-stage ring with TMA (q a 4-D tensor map
+//   (D, H, S, B), k and v (D, KV, S, B); each 128-row tile is D / 64 boxes
+//   of 64 columns with the 128-byte swizzle); each stage has a full and an
+//   empty mbarrier for K and for V. Two consumer warpgroups each own 64
+//   query rows and take turns at the tensor cores (pingpong, over named
+//   barriers), so one's softmax overlaps the other's products. S = Q K^T
+//   is a wgmma with both operands in shared memory (K is K-major); the
+//   online softmax runs on the f32 accumulator in registers, in base 2
+//   (log2(e) folded into the scale, ex2.approx); O += P V is a wgmma with
+//   P in registers, converted from the S accumulator to bf16 fragments in
+//   place, and V read as an MN-major operand (the transposed form).
+//   setmaxnreg moves registers from the producer to the consumers. TMA
+//   zero-fills rows past S; keys past S are masked and rows past S not
+//   stored. D = 256 stays on mma: its accumulators do not fit beside S.
+// - mma (bf16, D in {16, 32, 256}; 64 and 128 are the wgmma variant's
+//   alone, so the entry refuses mma there): mma.sync.m16n8k16,
+//   FlashAttention-2 style: one block of 4 warps per (64 query rows, head,
+//   batch), 16 rows a warp; K and V tiles of 64 keys staged in shared
+//   memory (rows padded by 8 elements against bank conflicts); S, the
+//   mask, the online softmax and O = O * alpha + P V in registers.
+// - simt (f32, full f32, no TF32): one block per (16 query rows, head,
+//   batch), 8 threads a row, each owning D / 8 columns of q and of the
+//   accumulator; keys stream through shared memory in tiles of 32 with a
+//   per-key online softmax.
+// All three keep one numeric contract: logits, m, l and the accumulator in
+// f32; masked logits at -1e30; the probabilities enter the PV product in
+// q's dtype (bf16 is the reference oracle's cast point), l sums the f32
+// probabilities; the output is rounded to q's dtype once. GQA is indexing:
+// query head h reads kv-head h / G, with no replication. Only tiles on the
+// causal diagonal, at the window's edge or past S evaluate the mask; key
+// tiles that every row of the block masks out are skipped, and the causal
+// blocks with the most keys are scheduled first. Any S.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
+enum Variant { kSimt = 0, kMma = 1, kWgmma = 2 };
 
 // ---- bf16: tensor cores (mma.sync) ----------------------------------------
 
@@ -242,6 +263,357 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
+// ---- bf16: wgmma + TMA ----------------------------------------------------
+
+constexpr int kWRows = 128;     // query rows per block, 64 per consumer warpgroup
+constexpr int kWKeys = 128;     // keys per K / V tile
+constexpr int kWStages = 2;
+constexpr int kWThreads = 384;  // producer warpgroup + 2 consumers
+constexpr int kWBox = 128 * 128;  // one 128-row x 64-column box, 16 KB
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t wgmma_smem_bytes() {
+  return 1024 + static_cast<size_t>(1 + 2 * kWStages) * (D / 64) * kWBox +
+         (1 + 4 * kWStages) * sizeof(uint64_t);
+}
+
+template <int D>
+struct PvMma;  // O (64 x D) += P (64 x 16, registers) V (16 x D, MN-major)
+
+template <>
+struct PvMma<128> {
+  static __device__ __forceinline__ void run(float (&o)[64], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t d) {
+    hopper::wgmma_m64n128k16_rs_tb(o, a0, a1, a2, a3, d, 1);
+  }
+};
+
+template <>
+struct PvMma<64> {
+  static __device__ __forceinline__ void run(float (&o)[32], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t d) {
+    hopper::wgmma_m64n64k16_rs_tb(o, a0, a1, a2, a3, d, 1);
+  }
+};
+
+// S = Q K^T for one key tile (64 x 128 per warpgroup), both operands
+// K-major in shared memory; committed as one group.
+// Descriptors are a base plus a constant step: the start address moves by
+// 32 bytes per 16 values of K inside a box and by kWBox to the next box.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint64_t qd, uint64_t kd) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t step = ((kk / 4) * kWBox + (kk % 4) * 32) >> 4;
+    hopper::wgmma_m64n128k16_ss(sc, qd + step, kd + step, kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// O += P V for one key tile: P from registers, V MN-major in shared
+// memory; committed as one group.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[32],
+                                         uint64_t vd) {
+#pragma unroll
+  for (int kk = 0; kk < kWKeys / 16; ++kk)
+    PvMma<D>::run(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                  vd + ((kk * 16 * 128) >> 4));
+  hopper::wgmma_commit();
+}
+
+// One thread's two rows (a and b) of the online softmax.
+struct RowState {
+  float m_a, m_b;    // running max, log2 domain
+  float l_a, l_b;    // this thread's part of the running sum
+  float al_a, al_b;  // the last tile's rescale factor for O
+};
+
+// 2^x by the MUFU unit alone (flushes denormal results to 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S (one 64 x 128 tile, in the accumulator layout) -> f32 probabilities in
+// place, updating the row state; the max is taken over the scaled logits.
+// On an edge tile the logits are scaled first, and each row keeps the keys
+// kt + [lo, hi] of the tile while every other logit takes -1e30; elsewhere
+// nothing is masked and the scale folds into the exponent's FMA.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& r, float scale_log2,
+                                             bool edge, int kt, int row_a, int S, int causal,
+                                             int window, int lane) {
+  float mul = scale_log2;  // what the exponent's FMA still applies
+  if (edge) {
+    int hi_a = S - 1 - kt, hi_b = hi_a, lo_a = -kWKeys, lo_b = -kWKeys;
+    if (causal) {
+      hi_a = min(hi_a, row_a - kt);
+      hi_b = min(hi_b, row_a + 8 - kt);
+    }
+    if (window > 0) {
+      lo_a = row_a - (window - 1) - kt;
+      lo_b = lo_a + 8;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 2 * (lane % 4) + 8 * j + (e & 1);
+        const bool ok = e < 2 ? (col <= hi_a && col >= lo_a) : (col <= hi_b && col >= lo_b);
+        sc[4 * j + e] = ok ? sc[4 * j + e] * scale_log2 : kNegInf;
+      }
+    }
+    mul = 1.0f;
+  }
+  float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+  }
+  const float mn_a = fmaxf(r.m_a, mx_a * mul), mn_b = fmaxf(r.m_b, mx_b * mul);
+  r.al_a = fast_exp2(r.m_a - mn_a);
+  r.al_b = fast_exp2(r.m_b - mn_b);
+  r.m_a = mn_a;
+  r.m_b = mn_b;
+  float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    sc[4 * j] = fast_exp2(fmaf(sc[4 * j], mul, -mn_a));
+    sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], mul, -mn_a));
+    sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], mul, -mn_b));
+    sc[4 * j + 3] = fast_exp2(fmaf(sc[4 * j + 3], mul, -mn_b));
+    sum_a += sc[4 * j] + sc[4 * j + 1];
+    sum_b += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  r.l_a = r.l_a * r.al_a + sum_a;  // the row's 4 threads sum at the end
+  r.l_b = r.l_b * r.al_b + sum_b;
+}
+
+// Whether some (row, key) pair of a warpgroup's 64 rows from qw0 and the
+// 128 keys from kt is masked (or past S).
+__device__ __forceinline__ bool edge_tile(int kt, int qw0, int S, int causal, int window) {
+  return (kt + kWKeys > S) || (causal && kt + kWKeys - 1 > qw0) ||
+         (window > 0 && qw0 + 63 - kt >= window);
+}
+
+// f32 probabilities -> the bf16 A fragments of P (4 registers per 16 keys):
+// n-block j of row a lands in p[2j], of row b in p[2j + 1].
+__device__ __forceinline__ void to_frags(const float (&sc)[64], uint32_t (&p)[32]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    p[2 * j] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+    p[2 * j + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], float al_a, float al_b) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    o[4 * j] *= al_a;
+    o[4 * j + 1] *= al_a;
+    o[4 * j + 2] *= al_b;
+    o[4 * j + 3] *= al_b;
+  }
+}
+
+// Pingpong between the consumer warpgroups over named barriers 1 and 2:
+// warpgroup c waits for its turn (barrier 1 + c) before issuing products
+// and gives the turn (barrier 2 - c) after.
+__device__ __forceinline__ void take_turn(int c) {
+  if (c == 0) hopper::named_sync<1, 256>();
+  else hopper::named_sync<2, 256>();
+}
+
+__device__ __forceinline__ void give_turn(int c) {
+  if (c == 0) hopper::named_arrive<2, 256>();
+  else hopper::named_arrive<1, 256>();
+}
+
+// grid (ceil(S / 128), H, B)
+//
+// The two consumer warpgroups take turns at the tensor cores
+// (FlashAttention-3's "pingpong", over named barriers 1 and 2): a
+// warpgroup issues its S = Q K^T only after the other has issued its own,
+// so one's softmax runs while the other's products do. K is released as
+// soon as S is computed and V after the PV product, each by its own empty
+// barrier, so the producer refills K while V is still in use.
+template <int D>
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+                   int S, int H, int KV, int causal, int window, float scale_log2) {
+  constexpr int NB = D / 64;            // 64-column boxes per tile
+  constexpr int TILE = NB * kWBox;      // bytes of a 128-row tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = hopper::align1024(smem_raw);
+  uint8_t* ks = qs + TILE;                  // kWStages K tiles
+  uint8_t* vs = ks + kWStages * TILE;       // kWStages V tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kWStages * TILE);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kWStages;
+  uint64_t* k_empty = v_full + kWStages;
+  uint64_t* v_empty = k_empty + kWStages;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // most keys first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int q0 = qt * kWRows;
+  int k_end = S;
+  if (causal) k_end = min(S, q0 + kWRows);
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q0 - (window - 1));
+  k_begin = (k_begin / kWKeys) * kWKeys;
+  const int ntiles = (k_end - k_begin + kWKeys - 1) / kWKeys;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kWStages; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&k_empty[s], 2);  // one arrival per consumer warpgroup
+      hopper::mbar_init(&v_empty[s], 2);
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: one thread issues every copy
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_map(&qmap);
+      hopper::prefetch_map(&kmap);
+      hopper::prefetch_map(&vmap);
+      hopper::mbar_expect_tx(q_full, TILE);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        hopper::tma_load_4d(qs + j * kWBox, &qmap, q_full, 64 * j, h, q0, b);
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % kWStages;
+        const uint32_t parity = ((it / kWStages) - 1) & 1;
+        const int kt = k_begin + it * kWKeys;
+        if (it >= kWStages) hopper::mbar_wait(&k_empty[s], parity);
+        hopper::mbar_expect_tx(&k_full[s], TILE);
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          hopper::tma_load_4d(ks + s * TILE + j * kWBox, &kmap, &k_full[s], 64 * j, kvh, kt, b);
+        if (it >= kWStages) hopper::mbar_wait(&v_empty[s], parity);
+        hopper::mbar_expect_tx(&v_full[s], TILE);
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          hopper::tma_load_4d(vs + s * TILE + j * kWBox, &vmap, &v_full[s], 64 * j, kvh, kt, b);
+      }
+    }
+  } else {  // consumers: query rows q0 + 64 (wg - 1) .. + 63
+    hopper::setmaxnreg_inc<240>();
+    const int c = wg - 1;
+    const bool leader = threadIdx.x % 128 == 0;
+    const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int qw0 = q0 + 64 * c;
+    const int row_a = qw0 + 16 * w + lane / 4, row_b = row_a + 8;
+    // this warpgroup's 64 rows of Q; K (K-major) and V (MN-major) of stage 0
+    const uint64_t qd = hopper::smem_desc(qs + c * 64 * 128, 16, 1024);
+    const uint64_t kd0 = hopper::smem_desc(ks, 16, 1024);
+    const uint64_t vd0 = hopper::smem_desc(vs, kWBox, 1024);
+    constexpr uint64_t kStageStep = TILE >> 4;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    float sc[64];
+    uint32_t p[32];
+    RowState r{kNegInf, kNegInf, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (c == 1) hopper::named_arrive<1, 256>();  // the first turn is warpgroup 0's
+    hopper::mbar_wait(q_full, 0);
+
+    for (int it = 0; it < ntiles; ++it) {
+      const int cur = it % kWStages;
+      const uint32_t parity = (it / kWStages) & 1;
+      hopper::mbar_wait(&k_full[cur], parity);
+      take_turn(c);
+      hopper::wgmma_fence();
+      issue_qk<D>(sc, qd, kd0 + cur * kStageStep);
+      if (c == 0 || it + 1 < ntiles) give_turn(c);  // warpgroup 1 gives one turn fewer
+      hopper::wgmma_wait<0>();
+      hopper::pin(sc);
+      if (leader) hopper::mbar_arrive(&k_empty[cur]);
+      const int kt = k_begin + it * kWKeys;
+      softmax_tile(sc, r, scale_log2, edge_tile(kt, qw0, S, causal, window), kt, row_a, S,
+                   causal, window, lane);
+      to_frags(sc, p);
+      rescale(o, r.al_a, r.al_b);
+      hopper::mbar_wait(&v_full[cur], parity);
+      hopper::pin(o);
+      hopper::pin(p);
+      hopper::wgmma_fence();
+      issue_pv<D>(o, p, vd0 + cur * kStageStep);
+      hopper::wgmma_wait<0>();
+      hopper::pin(o);
+      hopper::pin(p);
+      if (leader) hopper::mbar_arrive(&v_empty[cur]);
+    }
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      r.l_a += __shfl_xor_sync(0xffffffffu, r.l_a, off);
+      r.l_b += __shfl_xor_sync(0xffffffffu, r.l_b, off);
+    }
+    const float inv_a = 1.0f / fmaxf(r.l_a, 1e-30f), inv_b = 1.0f / fmaxf(r.l_b, 1e-30f);
+    const int64_t q_stride = static_cast<int64_t>(H) * D;
+    __nv_bfloat16* ob = out + (static_cast<int64_t>(b) * S * H + h) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (row_a < S)
+        *reinterpret_cast<uint32_t*>(ob + row_a * q_stride + 8 * j) =
+            pack_bf16(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
+      if (row_b < S)
+        *reinterpret_cast<uint32_t*>(ob + row_b * q_stride + 8 * j) =
+            pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int S,
+                         int H, int KV, int causal, int window, float scale,
+                         cudaStream_t s) {
+  static bool configured = false;  // shared memory above 48 KB is opt-in
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(wgmma_smem_bytes<D>()));
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  // (D, heads, S, B) maps; boxes of 64 columns x 1 head x 128 rows
+  const cuuint32_t box[4] = {64, 1, 128, 1};
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t heads = i == 0 ? H : KV;
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), heads, static_cast<cuuint64_t>(S),
+                                static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[3] = {D * 2, heads * D * 2, static_cast<cuuint64_t>(S) * heads * D * 2};
+    const cudaError_t e = hopper::bf16_map(&maps[i], bases[i], 4, dims, strides, box);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((S + kWRows - 1) / kWRows, H, B);
+  flash_wgmma_kernel<D><<<grid, kWThreads, wgmma_smem_bytes<D>(), s>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), S, H, KV, causal, window,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
 // ---- f32: SIMT, full float32 ----------------------------------------------
 
 constexpr int kRows = 16;     // query rows per block
@@ -348,27 +720,38 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, i
 
 // q (B, S, H, D), k and v (B, S, KV, D), out (B, S, H, D), one dtype
 // (dtype 0: float32, 1: bfloat16), row-major, contiguous, 16-byte aligned,
-// on the device of `stream`. D in {16, 32, 64, 128, 256}, H % KV == 0;
-// causal 0/1; window <= 0 for none. Returns cudaGetLastError().
+// on the device of `stream`; H % KV == 0; causal 0/1; window <= 0 for none.
+// variant 0 simt (f32, D a multiple of 8 up to 256), 1 mma (bf16, D in
+// {16, 32, 256}), 2 wgmma (bf16, D in {64, 128}). Returns
+// cudaErrorInvalidValue for a variant that cannot serve the call, else
+// cudaGetLastError().
 extern "C" int attn_flash_fwd(const void* q, const void* k, const void* v, void* out,
-                              int dtype, int B, int S, int H, int KV, int D, int causal,
-                              int window, void* stream) {
+                              int dtype, int variant, int B, int S, int H, int KV, int D,
+                              int causal, int window, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0 ||
       !(D == 16 || D == 32 || D == 64 || D == 128 || D == 256))
     return static_cast<int>(cudaErrorInvalidValue);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (variant == kWgmma) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    switch (D) {
+      case 64: return static_cast<int>(launch_wgmma<64>(q, k, v, out, B, S, H, KV, causal, window, scale, s));
+      case 128: return static_cast<int>(launch_wgmma<128>(q, k, v, out, B, S, H, KV, causal, window, scale, s));
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (variant == kMma) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     switch (D) {
       case 16: return static_cast<int>(launch_mma<16>(q, k, v, out, B, S, H, KV, causal, window, scale, s));
       case 32: return static_cast<int>(launch_mma<32>(q, k, v, out, B, S, H, KV, causal, window, scale, s));
-      case 64: return static_cast<int>(launch_mma<64>(q, k, v, out, B, S, H, KV, causal, window, scale, s));
-      case 128: return static_cast<int>(launch_mma<128>(q, k, v, out, B, S, H, KV, causal, window, scale, s));
-      default: return static_cast<int>(launch_mma<256>(q, k, v, out, B, S, H, KV, causal, window, scale, s));
+      case 256: return static_cast<int>(launch_mma<256>(q, k, v, out, B, S, H, KV, causal, window, scale, s));
+      default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (variant != kSimt || dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(flash_f32_kernel,

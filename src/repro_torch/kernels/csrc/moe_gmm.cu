@@ -11,34 +11,45 @@
 // tensor cores (operations); at its decode (C = 5) the 2.1 GB of expert
 // weights bound it, 0.63 ms at 3.35 TB/s (bytes).
 //
-// Design:
-// - bf16 (the working type) runs on the tensor cores with
-//   mma.sync.m16n8k16 (bf16 in, f32 accumulate): one block of 4 warps per
-//   (64 rows of C, 128 columns of dout, expert); the din axis is a loop
-//   inside the block over tiles of 32, staged through a 3-deep ring in
-//   shared memory with cp.async (16-byte copies, zero-filled past the
-//   edge), so the next tiles load while the tensor cores work. Each warp
-//   owns a 32 x 64 piece of the output. A fragments are 32-bit shared
-//   loads; B fragments come from the row-major (din, dout) tile through
-//   ldmatrix.trans. Rows are padded by 8 elements so neither collides on
-//   shared-memory banks.
-// - The row tiles of C run fastest in the grid, so the blocks in flight
-//   share each expert's weight panel through L2 and the weights stream
-//   from device memory about once; at decode (one row tile) the grid is
-//   E x dout / 128 blocks, each streaming its panel once.
-// - Ragged shapes: any C, din, dout. Rows and columns past the edge are
-//   zero-filled in shared memory and not written. Where din or dout is not
-//   a multiple of 8 (a 16-byte copy would straddle a row) the tiles load
-//   element by element instead.
-// - f32 keeps full f32 (no TF32): a SIMT kernel, one block of 256 threads
-//   per (64 x 64 output tile, expert), each thread 4 x 4 outputs, din in
-//   tiles of 16 through shared memory.
+// Three variants; the caller names one (kernels/moe_gmm.py::kernel_variant)
+// and a variant that cannot serve the shape is refused, never replaced:
+// - wgmma (bf16, din and dout multiples of 8; every model's prefill and
+//   decode, where a 128-row tile of 5 real rows still moves the weights
+//   at mma's pace or better): one
+//   block of three warpgroups per (128 rows of C, 256 columns of dout,
+//   expert). A producer warp keeps a 4-stage ring of (A 128 x 64, B 64 x
+//   256) tiles in flight with TMA, each stage guarded by a full and an
+//   empty mbarrier; two consumer warpgroups each own 64 rows and issue
+//   wgmma.m64n256k16 (f32 accumulators in registers, 128 a thread), with
+//   setmaxnreg moving registers from the producer to them. xg is a 3-D
+//   tensor map (din, C, E), so a row tile past C reads zeros and never the
+//   next expert's rows; wg is (dout, din, E) with dout contiguous, read as
+//   an MN-major B operand (the transposed form of wgmma) in four 64-wide
+//   boxes, so the weights keep the reference's layout. Rows and columns
+//   past the edge are zero-filled by TMA and not stored. The row tiles of
+//   C run fastest in the grid, so the blocks in flight share each expert's
+//   weight panel through L2.
+// - mma (bf16, any shape; chosen where din or dout is not a multiple of 8,
+//   which TMA cannot describe): mma.sync.m16n8k16, one
+//   block of 4 warps per (64 rows of C, 128 columns of dout, expert); din
+//   in tiles of 32 through a 3-deep cp.async ring (16-byte copies,
+//   zero-filled past the edge; element loads where din or dout is not a
+//   multiple of 8). Each warp owns a 32 x 64 piece; B fragments come
+//   through ldmatrix.trans; rows padded by 8 elements against bank
+//   conflicts.
+// - simt (f32, full f32, no TF32): one block of 256 threads per (64 x 64
+//   output tile, expert), each thread 4 x 4 outputs, din in tiles of 16
+//   through shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+enum Variant { kSimt = 0, kMma = 1, kWgmma = 2 };
 
 // ---- bf16: tensor cores (mma.sync) ----------------------------------------
 
@@ -220,6 +231,130 @@ gmm_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
   }
 }
 
+// ---- bf16: wgmma + TMA ----------------------------------------------------
+
+constexpr int kWM = 128;   // rows of C per block (64 per consumer warpgroup)
+constexpr int kWN = 256;   // columns of dout per block
+constexpr int kWK = 64;    // din per stage: one 128-byte swizzled row
+constexpr int kWStages = 4;
+constexpr int kWThreads = 384;          // producer warpgroup + 2 consumers
+constexpr int kWABytes = kWM * kWK * 2;  // 16 KB
+constexpr int kWBBox = kWK * 64 * 2;     // one 64 x 64 box of B, 8 KB
+constexpr int kWStageBytes = kWABytes + 4 * kWBBox;  // 48 KB
+constexpr size_t kWSmem = 1024 + kWStages * kWStageBytes + 2 * kWStages * sizeof(uint64_t);
+
+// grid (ceil(C / 128), ceil(dout / 256), E)
+__global__ void __launch_bounds__(kWThreads, 1)
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap wmap, __nv_bfloat16* __restrict__ out,
+                 int C, int din, int dout) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kWStages * kWStageBytes);
+  uint64_t* empty = full + kWStages;
+  const int m0 = blockIdx.x * kWM, n0 = blockIdx.y * kWN, e = blockIdx.z;
+  const int nk = (din + kWK - 1) / kWK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      hopper::mbar_init(&full[s], 1);   // the producer's expect_tx
+      hopper::mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: one thread issues every copy
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_map(&xmap);
+      hopper::prefetch_map(&wmap);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kWStages;
+        if (kt >= kWStages) hopper::mbar_wait(&empty[s], ((kt / kWStages) - 1) & 1);
+        uint8_t* a = smem + s * kWStageBytes;
+        hopper::mbar_expect_tx(&full[s], kWStageBytes);
+        hopper::tma_load_3d(a, &xmap, &full[s], kt * kWK, m0, e);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          hopper::tma_load_3d(a + kWABytes + j * kWBBox, &wmap, &full[s], n0 + 64 * j, kt * kWK,
+                              e);
+      }
+    }
+  } else {  // consumers: rows 64 (wg - 1) .. + 63 of the tile
+    hopper::setmaxnreg_inc<232>();
+    const int c = wg - 1;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % kWStages;
+      hopper::mbar_wait(&full[s], (kt / kWStages) & 1);
+      const uint8_t* a = smem + s * kWStageBytes + c * 64 * 128;
+      const uint8_t* b = smem + s * kWStageBytes + kWABytes;
+      hopper::pin(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWK / 16; ++kk)
+        hopper::wgmma_m64n256k16_ss_tb(acc, hopper::smem_desc(a + kk * 32, 16, 1024),
+                                       hopper::smem_desc(b + kk * 16 * 128, kWBBox, 1024), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // the previous stage's products are done
+      hopper::pin(acc);
+      if (kt > 0 && threadIdx.x % 128 == 0) hopper::mbar_arrive(&empty[(kt - 1) % kWStages]);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::pin(acc);
+
+    const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int row0 = m0 + c * 64 + w * 16 + lane / 4;
+    __nv_bfloat16* oe = out + static_cast<int64_t>(e) * C * dout;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane % 4);
+      if (col >= dout) continue;  // dout is even: col + 1 < dout too
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row < C)
+          *reinterpret_cast<__nv_bfloat162*>(oe + static_cast<int64_t>(row) * dout + col) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+cudaError_t launch_wgmma(const void* xg, const void* wg, void* out, int E, int C, int din,
+                         int dout, cudaStream_t s) {
+  static bool configured = false;  // shared memory above 48 KB is opt-in
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gmm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kWSmem));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[3] = {static_cast<cuuint64_t>(din), static_cast<cuuint64_t>(C),
+                               static_cast<cuuint64_t>(E)};
+  const cuuint64_t xstrides[2] = {static_cast<cuuint64_t>(din) * 2,
+                                  static_cast<cuuint64_t>(C) * din * 2};
+  const cuuint32_t xbox[3] = {kWK, kWM, 1};
+  cudaError_t err = hopper::bf16_map(&xmap, xg, 3, xdims, xstrides, xbox);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t wdims[3] = {static_cast<cuuint64_t>(dout), static_cast<cuuint64_t>(din),
+                               static_cast<cuuint64_t>(E)};
+  const cuuint64_t wstrides[2] = {static_cast<cuuint64_t>(dout) * 2,
+                                  static_cast<cuuint64_t>(din) * dout * 2};
+  const cuuint32_t wbox[3] = {64, kWK, 1};
+  err = hopper::bf16_map(&wmap, wg, 3, wdims, wstrides, wbox);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((C + kWM - 1) / kWM, (dout + kWN - 1) / kWN, E);
+  gmm_wgmma_kernel<<<grid, kWThreads, kWSmem, s>>>(xmap, wmap, static_cast<__nv_bfloat16*>(out),
+                                                   C, din, dout);
+  return cudaGetLastError();
+}
+
 // ---- f32: SIMT, full float32 ----------------------------------------------
 
 constexpr int kFT = 64;    // output tile edge
@@ -286,14 +421,22 @@ gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 // xg (E, C, din), wg (E, din, dout), out (E, C, dout), one dtype (0:
 // float32, 1: bfloat16), row-major, contiguous, 16-byte aligned, on the
-// device of `stream`. Returns cudaGetLastError().
-extern "C" int moe_gmm(const void* xg, const void* wg, void* out, int dtype, int E, int C,
-                       int din, int dout, void* stream) {
+// device of `stream`; variant 0 simt (f32), 1 mma (bf16), 2 wgmma (bf16, din
+// and dout multiples of 8). Returns cudaErrorInvalidValue for a variant
+// that cannot serve the call, else cudaGetLastError().
+extern "C" int moe_gmm(const void* xg, const void* wg, void* out, int dtype, int variant, int E,
+                       int C, int din, int dout, void* stream) {
   if (E <= 0 || C <= 0 || dout <= 0) return 0;
   if (din < 0 || E > 65535 || (C + kBM - 1) / kBM > 65535 || (dout + kFT - 1) / kFT > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (variant == kWgmma) {
+    if (dtype != 1 || din == 0 || din % 8 != 0 || dout % 8 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_wgmma(xg, wg, out, E, C, din, dout, s));
+  }
+  if (variant == kMma) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     const int vec = (din % 8 == 0) && (dout % 8 == 0);
     const dim3 grid((C + kBM - 1) / kBM, (dout + kBN - 1) / kBN, E);
     gmm_mma_kernel<<<grid, kThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(xg),
@@ -302,7 +445,7 @@ extern "C" int moe_gmm(const void* xg, const void* wg, void* out, int dtype, int
                                              vec);
     return static_cast<int>(cudaGetLastError());
   }
-  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (variant != kSimt || dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((C + kFT - 1) / kFT, (dout + kFT - 1) / kFT, E);
   gmm_f32_kernel<<<grid, kFThreads, 0, s>>>(static_cast<const float*>(xg),
                                             static_cast<const float*>(wg),

@@ -7,10 +7,12 @@ query head h reading kv-head h // (H // KV). Logits and softmax are
 float32; masked logits are -1e30.
 
 ``flash_attention`` is a ``torch.autograd.Function``: its forward launches
-``csrc/flash_attention.cu`` for CUDA tensors (counted in ``launches``) and
+``csrc/flash_attention.cu`` for CUDA tensors (counted in ``launches`` and,
+by the variant ``kernel_variant`` names, in ``launches_by_variant``) and
 runs ``attention_ref`` for CPU tensors; its backward is the autograd of
 ``attention_ref``, as the reference's ``custom_vjp`` is the VJP of its
-oracle. There is no fallback: a CUDA tensor launches the kernel or raises.
+oracle. There is no fallback: a CUDA tensor launches the named variant or
+raises.
 ``attention_ref`` is the reference's q-chunked oracle (``ref.attention``)
 and ``attention_dense_ref`` its dense one (``ref.attention_dense``).
 """
@@ -30,6 +32,23 @@ launches = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: The kernel's variants, by the number the C entry takes.
+VARIANTS = ("simt", "mma", "wgmma")
+WGMMA_HEAD_DIMS = (64, 128)
+#: The same launches split by variant.
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+def kernel_variant(dtype: torch.dtype, B: int, S: int, H: int, KV: int,
+                   D: int, window: Optional[int]) -> str:
+    """The variant of ``csrc/flash_attention.cu`` that serves this call:
+    ``"simt"`` for float32; for bfloat16 ``"wgmma"`` (TMA and wgmma) at D in
+    ``WGMMA_HEAD_DIMS`` and ``"mma"`` (mma.sync) at the other head dims.
+    TMA describes every B, S, H, KV and window at those head dims, so the
+    rest of the shape does not enter the rule."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    return "wgmma" if D in WGMMA_HEAD_DIMS else "mma"
 
 
 def attention_dense_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -118,7 +137,7 @@ def _entry():
 
     fn = build.load("flash_attention").attn_flash_fwd
     if fn.argtypes is None:  # ints would pass as 32-bit, cutting pointers
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -138,16 +157,18 @@ def _forward_cuda(q, k, v, causal: bool, window: Optional[int]):
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    variant = kernel_variant(q.dtype, B, S, H, KV, D, window)
     fn = _entry()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPES[q.dtype], B, S, H, KV, D, int(causal),
-            0 if window is None else int(window), stream)
+            DTYPES[q.dtype], VARIANTS.index(variant), B, S, H, KV, D,
+            int(causal), 0 if window is None else int(window), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc} at (B, S, H, KV, D) = "
+        raise RuntimeError(f"flash_attention kernel ({variant}) launch "
+                           f"failed: CUDA error {rc} at (B, S, H, KV, D) = "
                            f"({B}, {S}, {H}, {KV}, {D})")
     launches += 1
+    launches_by_variant[variant] += 1
     return out
 
 

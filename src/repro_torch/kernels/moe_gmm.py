@@ -7,9 +7,10 @@ xg (E, C, din) bucketed tokens, wg (E, din, dout) expert weights ->
 (float32 or bfloat16).
 
 ``moe_gmm`` launches ``csrc/moe_gmm.cu`` for CUDA tensors and counts each
-call that launched in ``launches``; for CPU tensors it is ``moe_gmm_ref``,
+call that launched in ``launches`` and, by the variant ``kernel_variant``
+names, in ``launches_by_variant``; for CPU tensors it is ``moe_gmm_ref``,
 the plain PyTorch version (the reference oracle's einsum). There is no
-fallback: a CUDA tensor launches the kernel or raises.
+fallback: a CUDA tensor launches the named variant or raises.
 """
 
 from __future__ import annotations
@@ -23,6 +24,24 @@ import torch
 launches = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The kernel's variants, by the number the C entry takes.
+VARIANTS = ("simt", "mma", "wgmma")
+#: The same launches split by variant.
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+def kernel_variant(dtype: torch.dtype, E: int, C: int, din: int,
+                   dout: int) -> str:
+    """The variant of ``csrc/moe_gmm.cu`` that serves this call:
+    ``"simt"`` for float32; for bfloat16 ``"wgmma"`` (TMA and wgmma) where
+    din and dout are positive multiples of 8 (TMA needs 16-byte strides),
+    else ``"mma"`` (mma.sync). Any C: at decode's few rows the wgmma
+    variant also beats mma.sync (``chip_smoke.py`` times both)."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if din <= 0 or din % 8 or dout % 8:
+        return "mma"
+    return "wgmma"
 
 
 def moe_gmm_ref(xg: torch.Tensor, wg: torch.Tensor) -> torch.Tensor:
@@ -51,7 +70,7 @@ def _entry():
 
     fn = build.load("moe_gmm").moe_gmm
     if fn.argtypes is None:  # ints would pass as 32-bit, cutting pointers
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -77,11 +96,15 @@ def moe_gmm(xg: torch.Tensor, wg: torch.Tensor) -> torch.Tensor:
     out = torch.empty((E, C, dout), dtype=xg.dtype, device=xg.device)
     if out.numel() == 0:
         return out
+    variant = kernel_variant(xg.dtype, E, C, din, dout)
     stream = torch.cuda.current_stream(xg.device).cuda_stream
     rc = _entry()(xg.data_ptr(), wg.data_ptr(), out.data_ptr(),
-                  DTYPES[xg.dtype], E, C, din, dout, stream)
+                  DTYPES[xg.dtype], VARIANTS.index(variant), E, C, din, dout,
+                  stream)
     if rc != 0:
-        raise RuntimeError(f"moe_gmm kernel launch failed: CUDA error {rc} "
-                           f"at (E, C, din, dout) = ({E}, {C}, {din}, {dout})")
+        raise RuntimeError(f"moe_gmm kernel ({variant}) launch failed: CUDA "
+                           f"error {rc} at (E, C, din, dout) = "
+                           f"({E}, {C}, {din}, {dout})")
     launches += 1
+    launches_by_variant[variant] += 1
     return out

@@ -183,16 +183,25 @@ def randn(g, shape, dtype):
     (2, 128, 4, 2, 64, True, None), (1, 256, 8, 8, 32, True, None),
     (2, 128, 4, 1, 64, True, 64), (1, 64, 2, 2, 128, False, None),
     (3, 64, 4, 4, 16, True, 16), (1, 333, 4, 1, 256, True, None),
-    (2, 300, 25, 5, 64, True, 100), (1, 200, 32, 2, 128, False, 50)])
+    (2, 300, 25, 5, 64, True, 100), (1, 200, 32, 2, 128, False, 50),
+    # the wgmma variant's edges: S not a multiple of its 128-row tiles at
+    # D = 128 and 64, G = 16, a window over several tiles, one row
+    (1, 333, 8, 2, 128, True, None), (2, 200, 4, 2, 64, True, None),
+    (1, 300, 16, 1, 128, True, None), (1, 700, 25, 5, 64, True, 256),
+    (2, 130, 4, 4, 128, False, None), (1, 1, 4, 2, 128, True, None)])
 def test_flash_matches_plain(cuda, dtype, B, S, H, KV, D, causal, window):
     g = torch.Generator(device=cuda).manual_seed(S * 7 + H)
     q = randn(g, (B, S, H, D), dtype)
     k = randn(g, (B, S, KV, D), dtype)
     v = randn(g, (B, S, KV, D), dtype)
-    before = fa.launches
+    variant = fa.kernel_variant(dtype, B, S, H, KV, D, window)
+    assert variant == ("simt" if dtype == torch.float32 else
+                       "wgmma" if D in (64, 128) else "mma")
+    before, before_v = fa.launches, fa.launches_by_variant[variant]
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.launches == before + 1 and got.dtype == dtype
+    assert fa.launches_by_variant[variant] == before_v + 1
     exp = fa.attention_ref(q, k, v, causal=causal, window=window)
     tol = ATTN_TOL[dtype][0]
     np.testing.assert_allclose(got.float().cpu(), exp.float().cpu(),
@@ -209,6 +218,26 @@ def test_flash_gradient_through_kernel_forward(cuda):
     for a, b in zip(leaves, plain):
         np.testing.assert_allclose(a.grad.cpu(), b.grad.cpu(), atol=5e-4,
                                    rtol=5e-4)
+
+
+CUDA_ERROR_INVALID_VALUE = 1
+
+
+@pytest.mark.parametrize("dtype,D,variant", [
+    (torch.float32, 128, "wgmma"), (torch.bfloat16, 32, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "mma"),
+    (torch.bfloat16, 64, "simt"),
+    # D = 64 and 128 are the wgmma variant's alone
+    (torch.bfloat16, 64, "mma"), (torch.bfloat16, 128, "mma")])
+def test_flash_entry_refuses_a_variant_that_cannot_serve(cuda, dtype, D,
+                                                         variant):
+    q = torch.zeros((1, 64, 2, D), device=cuda, dtype=dtype)
+    out = torch.empty_like(q)
+    rc = fa._entry()(q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                     out.data_ptr(), fa.DTYPES[dtype],
+                     fa.VARIANTS.index(variant), 1, 64, 2, 2, D, 1, 0,
+                     torch.cuda.current_stream().cuda_stream)
+    assert rc == CUDA_ERROR_INVALID_VALUE
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -293,20 +322,46 @@ GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 @pytest.mark.parametrize("E,C,din,dout", [
     (4, 96, 192, 320), (2, 128, 256, 256), (8, 64, 128, 512),
     (1, 256, 512, 128), (3, 100, 130, 70), (16, 5, 512, 384),
-    (2, 1, 64, 136)])
+    (2, 1, 64, 136),
+    # the wgmma variant's edges: C not a multiple of its 128-row tiles,
+    # din not a multiple of its 64-deep stages, dout of its 256 columns
+    (3, 70, 256, 384), (1, 200, 512, 264), (2, 300, 136, 520),
+    (4, 64, 64, 256)])
 def test_moe_gmm_matches_plain(cuda, dtype, E, C, din, dout):
     g = torch.Generator(device=cuda).manual_seed(E * 100 + C)
     x = randn(g, (E, C, din), dtype)
     w = (torch.randn((E, din, dout), device=cuda, generator=g)
          / din ** 0.5).to(dtype)
-    before = gmm.launches
+    variant = gmm.kernel_variant(dtype, E, C, din, dout)
+    before, before_v = gmm.launches, gmm.launches_by_variant[variant]
     got = gmm.moe_gmm(x, w)
     torch.cuda.synchronize()
     assert gmm.launches == before + 1 and got.dtype == dtype
+    assert gmm.launches_by_variant[variant] == before_v + 1
+    if dtype == torch.bfloat16 and din % 8 == dout % 8 == 0:
+        assert variant == "wgmma"
     exp = gmm.moe_gmm_ref(x, w)
     tol = GMM_TOL[dtype]
     np.testing.assert_allclose(got.float().cpu(), exp.float().cpu(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,shape,variant", [
+    (torch.float32, (2, 128, 256, 256), "wgmma"),
+    (torch.bfloat16, (2, 128, 130, 256), "wgmma"),
+    (torch.bfloat16, (2, 128, 256, 100), "wgmma"),
+    (torch.float32, (2, 128, 256, 256), "mma"),
+    (torch.bfloat16, (2, 128, 256, 256), "simt")])
+def test_moe_gmm_entry_refuses_a_variant_that_cannot_serve(cuda, dtype,
+                                                           shape, variant):
+    E, C, din, dout = shape
+    x = torch.zeros((E, C, din), device=cuda, dtype=dtype)
+    w = torch.zeros((E, din, dout), device=cuda, dtype=dtype)
+    out = torch.empty((E, C, dout), device=cuda, dtype=dtype)
+    rc = gmm._entry()(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                      gmm.DTYPES[dtype], gmm.VARIANTS.index(variant), E, C,
+                      din, dout, torch.cuda.current_stream().cuda_stream)
+    assert rc == CUDA_ERROR_INVALID_VALUE
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
