@@ -53,23 +53,26 @@ non-zero with a traceback, and no phase's failure is caught.
    3e-2 decode in bf16), and each bf16 output also held tightly to the
    plain version run in f32 on the same bf16 inputs (every output row
    within ``BF16_ROW_RTOL`` of its own norm): qwen3-1.7b's prefill (B = 2, S = 4096, causal)
-   and one long context (S = 16,384); qwen3-1.7b's decode (16 slots, T =
-   4096) and one layer at the decode_32k shape (B = 128, T = 32,768, bf16
-   only: its caches are 17.2 GB); MQA, MHA, G = 4 and G = 16, D = 64 and
-   256, S and T that are not powers of two, lengths 0, 1 and T with rows
-   past each length poisoned, a 1024 sliding window (hymba-1.5b's prefill
-   among them) and non-causal. Each flash row names the variant
-   ``kernel_variant`` picked (its count must advance) and its TFLOP/s.
-   Times of the kernel, the plain version and one
-   ``scaled_dot_product_attention`` call (the library yardstick, never
-   called by the port), beside the bound; the flash autograd.Function's
+   and one long context (S = 16,384); kimi-k2's attention width (64/8
+   heads of 112): a (1, 4096) causal prefill and a 16-slot decode with T =
+   4096; qwen3-1.7b's decode (16 slots, T = 4096) and one layer at the
+   decode_32k shape (B = 128, T = 32,768, bf16 only: its caches are 17.2
+   GB); MQA, MHA, G = 4 and G = 16, D = 64, 112 and 256, S and T that are
+   not powers of two, lengths 0, 1 and T with rows past each length
+   poisoned, a 1024 sliding window (hymba-1.5b's prefill among them) and
+   non-causal. Each row names the variant ``kernel_variant`` picked (its
+   count must advance), flash rows their TFLOP/s. Times of the kernel, the
+   plain version and one ``scaled_dot_product_attention`` call (the
+   library yardstick, never called by the port), beside the bound, and,
+   for bf16 decode rows, of the simt kernel, the design before the tma
+   one, held to the same tolerance; the flash autograd.Function's
    gradient against the plain one.
 7. lm-serve — qwen3-1.7b at full width (28 layers, random weights from
    seed 0) through the port's entry points on the card: ``lm_init``, one
    ``make_prefill_step`` call on (2, 4096) tokens (flash launches exactly
    28 times, all the wgmma variant), the ``launch/serve.py`` loop (32 requests, 16 slots, 32 new
-   tokens, a 4096-row cache; decode launches 28 times per step; every
-   request answered), one timed decode step at a cache of about 4000 rows
+   tokens, a 4096-row cache; decode launches 28 times per step, all the
+   tma variant; every request answered), one timed decode step at a cache of about 4000 rows
    (it and one prefill call split by ``torch.profiler`` into device busy
    time per kernel class and the device's idle share), and the whole model against itself under ``ops.set_default_impl("ref")``
    (f32 config: logits within ``MODEL_F32_RTOL`` of the largest; bf16:
@@ -86,15 +89,17 @@ non-zero with a traceback, and no phase's failure is caught.
    partial 128-row tile), E = 1, C = 1, each row with its variant, TFLOP/s
    and largest difference from ``torch.bmm``'s output;
    hymba's (2, 4096, 25 heads, 16 x 128) and xlstm's 512 x 512 state at
-   (1, 1024) and (2, 4096), S = 333 and 1000, strong decay; norms of
+   (1, 1024) and (2, 4096), S = 333 and 1000, strong decay, each scan row
+   with its variant (mma in bf16, simt in f32) and, in bf16, the old
+   design's (simt) time; norms of
    (8192, 2048), (8192, 6144), (16, 6144), 4097 rows of 1600, d = 100.
    Times of the kernel, the plain version and the library call
-   (``torch.bmm``; ``rms_norm``; none computes the scan), beside the bound.
+   (``torch.bmm``; ``rms_norm``; none computes the scan), beside the bound
+   (the scan's at its inputs' type's rate).
 9. lm-serve-2 — the MoE, hybrid and SSM paths through the port's entry
    points: dbrx-132b at full width with 2 of its 40 layers (its tree from
    ``lm_param_shapes``, drawn on the card), one (2, 4096) prefill
-   (``moe_gmm`` 3 launches a layer, flash 1, every one of them the wgmma
-   variant), the serve loop of phase 7
+   (``moe_gmm`` 3 launches a layer, flash 1), the serve loop of phase 7
    (3 ``moe_gmm`` and 1 decode launch per layer and step), a long-cache
    step, ``torch.profiler`` splits and the bf16 model against itself under
    ``set_default_impl("ref")`` with the share of routings that agree (the
@@ -103,6 +108,8 @@ non-zero with a traceback, and no phase's failure is caught.
    from ``lm_init``: a (2, 4096) and a (1, 1024) prefill (``linear_scan``
    once per hymba layer and xlstm mLSTM block; never in decode), the serve
    loop, a step, splits, and each model against itself in f32 and bf16.
+   Every launch of these paths is the Hopper design (``HOPPER_VARIANT``:
+   wgmma flash and ``moe_gmm``, tma decode, mma scan).
 
 The line before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
@@ -803,6 +810,8 @@ FLASH_CASES = [
      ("bfloat16", "float32"), False),
     ("hymba-1.5b prefill (2, 4096), window 1024", 2, 4096, 25, 5, 64, True,
      1024, ("bfloat16",), True),
+    ("kimi-k2 prefill (1, 4096), 64/8 heads of 112", 1, 4096, 64, 8, 112,
+     True, None, ("bfloat16", "float32"), True),
     ("window 1024, 25/5 heads, D=64 (hymba)", 1, 3000, 25, 5, 64, True, 1024,
      ("bfloat16", "float32"), False),
     ("D=64, S=200", 2, 200, 8, 2, 64, True, None, ("bfloat16", "float32"),
@@ -823,6 +832,10 @@ def decode_cases():
          ("bfloat16", "float32"), True),
         ("decode_32k layer", d32.global_batch, 16, 8, 128, d32.seq_len,
          "spread", ("bfloat16",), True),
+        ("kimi-k2 16 slots, 64/8 heads of 112", 16, 64, 8, 112, 4096,
+         "spread", ("bfloat16", "float32"), True),
+        ("64/8 heads of 112, T=777 (kimi-k2)", 3, 64, 8, 112, 777, "edges",
+         ("bfloat16", "float32"), False),
         ("MQA KV=1, T=1000", 3, 8, 1, 128, 1000, "edges",
          ("bfloat16", "float32"), False),
         ("MHA KV=H, T=777", 3, 8, 8, 128, 777, "edges",
@@ -859,6 +872,14 @@ def sdpa_decode(torch, q, k, v, length):
     return F.scaled_dot_product_attention(
         q.view(B, KV, H // KV, D), k.transpose(1, 2), v.transpose(1, 2),
         attn_mask=mask)
+
+
+def decode_as(torch, da, variant, q, k, v, length):
+    """One launch of the named decode variant (the old design, ``simt``,
+    beside the one ``kernel_variant`` picks), never counted."""
+    out = torch.empty_like(q)
+    da.launch_variant(variant, q, k, v, length, out)
+    return out
 
 
 def gmm_as(torch, gmm, variant, x, w):
@@ -953,51 +974,66 @@ def phase_lm_kernels(torch, dev) -> dict:
             k = torch.randn((B, T, KV, D), device=dev, generator=g, dtype=dt)
             v = torch.randn((B, T, KV, D), device=dev, generator=g, dtype=dt)
             length = decode_lengths(torch, dev, B, T, kind, g)
+            variant = da.kernel_variant(dt, B, H, KV, D, T)
+            before = da.launches_by_variant[variant]
             got = da.decode_attention(q, k, v, length)
             exp = da.decode_attention_ref(q, k, v, length)
             torch.cuda.synchronize()
+            if da.launches_by_variant[variant] != before + 1:
+                raise AssertionError(f"decode {label} {dname}: the {variant} "
+                                     "variant did not launch")
             tol = ATTN_TOL[dname][1]
             err = attn_close(got, exp, tol, f"decode {label} {dname}")
             del exp
+            big = B * T >= 10 ** 6
+            # times before any rows are poisoned: the plain version, the
+            # library call and, in bf16, the old design (simt)
+            plain_ms = cuda_time_ms(
+                torch, lambda: da.decode_attention_ref(q, k, v, length),
+                inner=1 if big else 5, reps=3)
+            library_ms = cuda_time_ms(
+                torch, lambda: sdpa_decode(torch, q, k, v, length),
+                inner=2 if big else 10, reps=3)
+            other = "simt" if variant != "simt" else None
+            other_ms = None
+            if other:  # the old design, held to the plain version too
+                attn_close(decode_as(torch, da, other, q, k, v, length),
+                           da.decode_attention_ref(q, k, v, length), tol,
+                           f"decode {label} {dname} ({other})")
+                other_ms = cuda_time_ms(
+                    torch, lambda: decode_as(torch, da, other, q, k, v,
+                                             length),
+                    inner=5 if big else 20, reps=5)
             row_err = None
             if dname == "bfloat16":  # 16 sequences at a time: f32 copies
                 row_err = bf16_row_err(
                     torch, got, da.decode_attention_ref, (q, k, v, length),
                     f"decode {label} {dname}", chunk=16)
-            poisoned = False
             if not main:  # rows past each length must not matter
                 for b, n in enumerate(length.tolist()):
                     if 0 < n < T:
                         k[b, n:] = 1e4
                         v[b, n:] = float("nan")
-                        poisoned = True
                 again = da.decode_attention(q, k, v, length)
                 if not torch.equal(again, got):
                     raise AssertionError(f"decode {label} {dname}: rows past "
                                          "the length changed the output")
                 del again
             del got
-            big = B * T >= 10 ** 6
             kernel_ms = cuda_time_ms(
                 torch, lambda: da.decode_attention(q, k, v, length),
                 inner=5 if big else 20, reps=5)
-            plain_ms = library_ms = None
-            if not poisoned:
-                plain_ms = cuda_time_ms(
-                    torch, lambda: da.decode_attention_ref(q, k, v, length),
-                    inner=1 if big else 5, reps=3)
-                library_ms = cuda_time_ms(
-                    torch, lambda: sdpa_decode(torch, q, k, v, length),
-                    inner=2 if big else 10, reps=3)
             rows = sum(min(n, T) if n > 0 else T for n in length.tolist())
             nbytes = (2 * rows * KV * D + 2 * B * H * D) * k.element_size()
             bound_ms, bound_by = attn_bound(nbytes, 4 * D * H * rows, dname)
             decode_rows.append(dict(
-                label=label, dtype=dname, main=main, shape=[B, H, KV, D, T],
+                label=label, dtype=dname, main=main, variant=variant,
+                shape=[B, H, KV, D, T],
                 lengths=kind, max_abs_err=err, bf16_row_err_vs_f32=row_err,
                 kernel_ms=kernel_ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by, cache_rows_read=rows))
+                bound_by=bound_by, other_variant=other, other_ms=other_ms,
+                bound_share=bound_ms / kernel_ms, cache_rows_read=rows))
             del q, k, v, length
             torch.cuda.empty_cache()
     grad = flash_grad_check(torch, dev)
@@ -1050,11 +1086,14 @@ def filled_state(torch, dev, cfg, B, T, seed):
 def kernel_class(name: str) -> str:
     if any(f"flash_{v}_kernel" in name for v in ("wgmma", "mma", "f32")):
         return "flash_attention"
-    if "decode_kernel" in name or "combine_kernel" in name:
+    if any(f"{n}_kernel" in name for n in ("decode", "decode_ring",
+                                            "combine")):
         return "decode_attention"
     if any(f"gmm_{v}_kernel" in name for v in ("wgmma", "mma", "f32")):
         return "moe_gmm"
-    if "scan_kernel<" in name or "scan_kernelI" in name:
+    if any(f"{n}_kernel" in name for n in ("chunk_state", "state_pass",
+                                            "chunk_out")) or \
+            "scan_kernel<" in name or "scan_kernelI" in name:
         return "linear_scan"
     if "rmsnorm_kernel" in name:
         return "rmsnorm"
@@ -1158,6 +1197,7 @@ def phase_lm_serve(torch, dev) -> dict:
     # The main path, with both counts at 0 just before and read just after.
     fa.launches = da.launches = 0
     fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
+    da.launches_by_variant = dict.fromkeys(da.VARIANTS, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits = prefill(cparams, {"tokens": toks})
@@ -1170,6 +1210,10 @@ def phase_lm_serve(torch, dev) -> dict:
                              f"the wgmma variant: {flash_variants}")
     res = serve(cfg, cparams, device=dev, **SERVE)
     decode_launches, flash_after = da.launches, fa.launches
+    decode_variants = dict(da.launches_by_variant)
+    if decode_variants["tma"] != decode_launches:
+        raise AssertionError(f"the serve loop's decode launches were not all "
+                             f"the tma variant: {decode_variants}")
     if flash_launches != L or flash_after != L:
         raise AssertionError(f"flash launched {flash_launches} times in one "
                              f"prefill call, expected {L}")
@@ -1270,6 +1314,7 @@ def phase_lm_serve(torch, dev) -> dict:
                    tokens_per_s=served / res.seconds,
                    ms_per_step=res.seconds / res.steps * 1e3,
                    decode_launches=decode_launches,
+                   decode_launches_by_variant=decode_variants,
                    decode_launches_per_step=decode_launches / res.steps),
         long_cache_step=dict(slots=SERVE["slots"], lengths=LONG_CACHE,
                              ms=long_ms, profile=step_split),
@@ -1440,10 +1485,15 @@ def phase_lm_kernels_2(torch, dev) -> dict:
             v = torch.randn((B, S, H, Dv), device=dev, generator=g, dtype=dt)
             a = lo + (hi - lo) * torch.rand((B, S, H), device=dev,
                                             generator=g)
+            variant = ss.kernel_variant(dt, B, S, H, Dk, Dv)
+            before = ss.launches_by_variant[variant]
             got, state = ss.linear_scan(q, k, v, a,
                                         want_final_state=not main)
             exp, exp_state = ss.linear_scan_chunked_ref(q, k, v, a)
             torch.cuda.synchronize()
+            if ss.launches_by_variant[variant] != before + 1:
+                raise AssertionError(f"linear_scan {label} {dname}: the "
+                                     f"{variant} variant did not launch")
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"linear_scan {label}: non-finite output")
             err = attn_close(got, exp, SCAN_TOL[dname],
@@ -1459,13 +1509,13 @@ def phase_lm_kernels_2(torch, dev) -> dict:
                     attn_close(s_, e, SCAN_TOL["float32"] if dname ==
                                "float32" else SCAN_TOL["bfloat16"],
                                f"linear_scan {label} final state")
+            plain_out = exp
             del exp, exp_state, state
             row_err = None
             if dname == "bfloat16":
                 row_err = bf16_row_err(
                     torch, got, lambda *t: ss.linear_scan_chunked_ref(*t)[0],
                     (q, k, v, a), f"linear_scan {label}", chunk=1)
-            del got
             big = B * S * H * Dk * Dv >= 10 ** 9
             kernel_ms = cuda_time_ms(
                 torch, lambda: ss.linear_scan(q, k, v, a,
@@ -1474,17 +1524,33 @@ def phase_lm_kernels_2(torch, dev) -> dict:
             plain_ms = cuda_time_ms(
                 torch, lambda: ss.linear_scan_chunked_ref(q, k, v, a),
                 inner=1, reps=3, hide_host=False)
-            # the recurrence's own work: S update and q.S per token and head
+            # the old design (simt) beside the one the rule picks
+            other = "simt" if variant != "simt" else None
+            other_ms = None
+            if other:
+                y_old = torch.empty_like(got)
+                ss.launch_variant(other, q, k, v, a.contiguous(), y_old)
+                attn_close(y_old, plain_out, SCAN_TOL[dname],
+                           f"linear_scan {label} ({other})")
+                other_ms = cuda_time_ms(
+                    torch, lambda: ss.launch_variant(other, q, k, v, a, y_old),
+                    inner=1 if big else 5, reps=3 if big else 5)
+                del y_old
+            del got, plain_out
+            # the recurrence's own work: S update and q.S per token and
+            # head, at the inputs' type's rate (bf16: the tensor cores)
             ops = B * S * H * (4.0 * Dk * Dv + 4.0 * Dk + 2.0 * Dv)
             nbytes = B * S * H * ((2 * Dk + 2 * Dv) * q.element_size() + 4)
-            bound_ms, bound_by = attn_bound(nbytes, ops, "float32")
+            bound_ms, bound_by = attn_bound(nbytes, ops, dname)
             scan_rows.append(dict(
-                label=label, dtype=dname, main=main,
+                label=label, dtype=dname, main=main, variant=variant,
+                chunk=(ss.chunk_length(Dk, Dv) if variant == "mma"
+                       else None),
                 shape=[B, S, H, Dk, Dv], decay=[lo, hi], max_abs_err=err,
                 bf16_row_err_vs_f32=row_err, rel_err_vs_f64=vs_f64,
                 kernel_ms=kernel_ms,
                 plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by=bound_by))
+                bound_by=bound_by, other_variant=other, other_ms=other_ms))
             del q, k, v, a
             torch.cuda.empty_cache()
     for label, shape, dtypes in NORM_CASES:
@@ -1741,6 +1807,11 @@ def decode_twins(torch, cfg, params, dev, ops, steps: int, seed: int):
     return out
 
 
+#: The variant every bf16 launch of each kernel on the models' paths takes.
+HOPPER_VARIANT = {"moe_gmm": "wgmma", "linear_scan": "mma",
+                  "flash_attention": "wgmma", "decode_attention": "tma"}
+
+
 def drive_path(torch, dev, cfg, cparams, shape, per_prefill, per_step, g):
     """The model's main path through the entry points, every launch count
     at 0 just before and read just after: one prefill of ``shape`` tokens
@@ -1765,27 +1836,21 @@ def drive_path(torch, dev, cfg, cparams, shape, per_prefill, per_step, g):
 
     for c in counters.values():
         c.launches = 0
-    for c in (fa, gmm):
         c.launches_by_variant = dict.fromkeys(c.VARIANTS, 0)
     first_ms, _ = timed_ms(torch, lambda: check_logits(
         cfg, prefill(cparams, {"tokens": toks}), (B, S)))
     at_prefill = {n: c.launches for n, c in counters.items()}
     variants_at_prefill = {n: dict(c.launches_by_variant)
-                           for n, c in (("flash_attention", fa),
-                                        ("moe_gmm", gmm))}
-    for n, by in variants_at_prefill.items():  # bf16 prefill: Hopper kernels
-        if by["wgmma"] != at_prefill[n]:
-            raise AssertionError(f"{cfg.name}: the prefill's {n} launches "
-                                 f"were not all the wgmma variant: {by}")
+                           for n, c in counters.items()}
     res, serve_row = serve_checked(cfg, cparams, dev, serve)
     at_end = {n: c.launches for n, c in counters.items()}
     variants_at_end = {n: dict(c.launches_by_variant)
-                       for n, c in (("flash_attention", fa),
-                                    ("moe_gmm", gmm))}
-    by = variants_at_end["moe_gmm"]  # steps too: every width is aligned
-    if by["wgmma"] != at_end["moe_gmm"]:
-        raise AssertionError(f"{cfg.name}: the moe_gmm launches were not "
-                             f"all the wgmma variant: {by}")
+                       for n, c in counters.items()}
+    # bf16 models: every launch, prefill and steps, on the Hopper designs
+    for n, by in variants_at_end.items():
+        if by[HOPPER_VARIANT[n]] != at_end[n]:
+            raise AssertionError(f"{cfg.name}: the {n} launches were not "
+                                 f"all the {HOPPER_VARIANT[n]} variant: {by}")
     for n in counters:
         want = per_prefill.get(n, 0)
         if at_prefill[n] != want or \
@@ -1955,6 +2020,13 @@ def phase_lm_serve_2(torch, dev) -> dict:
     return out
 
 
+def variant_keys(row: dict) -> dict:
+    """The variant, TFLOP/s and the other design's time of a kernel's main
+    row, where it has them."""
+    return {k: row[k] for k in ("variant", "tflops", "other_variant",
+                                "other_ms") if row.get(k) is not None}
+
+
 def timed_ms(torch, fn):
     out, s = timed(torch, fn)
     return s * 1e3, out
@@ -2068,9 +2140,7 @@ def main(argv=None) -> int:
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=at["kernel_ms"], plain_ms=at["plain_ms"],
             bound_ms=at["bound_ms"], bound_by=at["bound_by"],
-            library_ms=at["library_ms"], shapes=rows,
-            **({"variant": at["variant"], "tflops": at["tflops"]}
-               if name == "flash_attention" else {})))
+            library_ms=at["library_ms"], shapes=rows, **variant_keys(at)))
     scan_launches = sum(lm_serve2[m]["serve"]["launches"]["linear_scan"]
                         for m in ("hymba", "xlstm"))
     for name, cu, line, label, launches in (
@@ -2091,9 +2161,7 @@ def main(argv=None) -> int:
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=at["kernel_ms"], plain_ms=at["plain_ms"],
             bound_ms=at["bound_ms"], bound_by=at["bound_by"],
-            library_ms=at["library_ms"], shapes=rows,
-            **({"variant": at["variant"], "tflops": at["tflops"]}
-               if name == "moe_gmm" else {})))
+            library_ms=at["library_ms"], shapes=rows, **variant_keys(at)))
     emit(dict(phase="kernels", kernels=kernels))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -58,9 +58,9 @@ def real_fl_runtime(spec, jobs: List[JobConfig], pool: DevicePool, *,
     for job in jobs:
         if job.model.family != ArchFamily.CNN:
             raise NotImplementedError(
-                f"real_fl trains the paper's CNN zoo; {job.model.name!r} is "
-                f"a {job.model.family.value} language model, and LM training "
-                "is ROADMAP module 10, not ported yet")
+                f"real_fl trains only the paper's CNN zoo, as the reference's "
+                f"does; {job.model.name!r} is a {job.model.family.value} "
+                "language model")
     datasets = []
     for jid, job in enumerate(jobs):
         cfg = job.model

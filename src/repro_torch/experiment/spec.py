@@ -25,8 +25,9 @@ spec field, so the reference's spec and result JSON load here unchanged;
 
 Axes the port does not run yet raise ``NotImplementedError`` naming their
 ROADMAP module: a non-inert ``slo`` or an active ``obs`` (8), ``policy``
-(9), ``fleet.num_shards`` > 1 (7), and (10) the audio and VLM arch ids
-and LM training under ``real_fl``.
+(9), ``fleet.num_shards`` > 1 (7), and (10) the audio and VLM arch ids.
+A language model under ``real_fl`` raises too: the reference's ``real_fl``
+trains only the CNN zoo.
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@
 // Three variants; the caller names one (kernels/flash_attention.py::
 // kernel_variant) and a variant that cannot serve the shape is refused,
 // never replaced:
-// - wgmma (bf16, D in {64, 128}; every model's prefill): FlashAttention-3
+// - wgmma (bf16, D in {64, 112, 128}; every model's prefill): FlashAttention-3
 //   shaped. One block of three warpgroups per (128 query rows, head,
 //   batch). A producer warp loads the Q tile once and streams K and V
 //   tiles of 128 keys through a 2-stage ring with TMA (q a 4-D tensor map
@@ -35,8 +35,12 @@
 //   place, and V read as an MN-major operand (the transposed form).
 //   setmaxnreg moves registers from the producer to the consumers. TMA
 //   zero-fills rows past S; keys past S are masked and rows past S not
-//   stored. D = 256 stays on mma: its accumulators do not fit beside S.
-// - mma (bf16, D in {16, 32, 256}; 64 and 128 are the wgmma variant's
+//   stored. D = 112 (kimi-k2) runs as D = 128: the tensor maps keep D = 112
+//   columns, so the second 64-column box of every tile reads columns
+//   112-127 as zeros, Q K^T over 128 columns is exact, P V runs at N = 128
+//   and only 112 columns are stored; the scale is 1 / sqrt(112). D = 256
+//   stays on mma: its accumulators do not fit beside S.
+// - mma (bf16, D in {16, 32, 256}; 64, 112 and 128 are the wgmma variant's
 //   alone, so the entry refuses mma there): mma.sync.m16n8k16,
 //   FlashAttention-2 style: one block of 4 warps per (64 query rows, head,
 //   batch), 16 rows a warp; K and V tiles of 64 keys staged in shared
@@ -446,13 +450,15 @@ __device__ __forceinline__ void give_turn(int c) {
 // so one's softmax runs while the other's products do. K is released as
 // soon as S is computed and V after the PV product, each by its own empty
 // barrier, so the producer refills K while V is still in use.
+// D is the head dim stored; DP = D rounded up to 64 is the width computed.
 template <int D>
 __global__ void __launch_bounds__(kWThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
                    int S, int H, int KV, int causal, int window, float scale_log2) {
-  constexpr int NB = D / 64;            // 64-column boxes per tile
+  constexpr int DP = (D + 63) / 64 * 64;
+  constexpr int NB = DP / 64;           // 64-column boxes per tile
   constexpr int TILE = NB * kWBox;      // bytes of a 128-row tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = hopper::align1024(smem_raw);
@@ -527,9 +533,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const uint64_t vd0 = hopper::smem_desc(vs, kWBox, 1024);
     constexpr uint64_t kStageStep = TILE >> 4;
 
-    float o[D / 2];
+    float o[DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
     float sc[64];
     uint32_t p[32];
     RowState r{kNegInf, kNegInf, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -542,7 +548,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       hopper::mbar_wait(&k_full[cur], parity);
       take_turn(c);
       hopper::wgmma_fence();
-      issue_qk<D>(sc, qd, kd0 + cur * kStageStep);
+      issue_qk<DP>(sc, qd, kd0 + cur * kStageStep);
       if (c == 0 || it + 1 < ntiles) give_turn(c);  // warpgroup 1 gives one turn fewer
       hopper::wgmma_wait<0>();
       hopper::pin(sc);
@@ -556,7 +562,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       hopper::pin(o);
       hopper::pin(p);
       hopper::wgmma_fence();
-      issue_pv<D>(o, p, vd0 + cur * kStageStep);
+      issue_pv<DP>(o, p, vd0 + cur * kStageStep);
       hopper::wgmma_wait<0>();
       hopper::pin(o);
       hopper::pin(p);
@@ -591,7 +597,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(wgmma_smem_bytes<D>()));
+                                               static_cast<int>(wgmma_smem_bytes<(D + 63) / 64 * 64>()));
     if (e != cudaSuccess) return e;
     configured = true;
   }
@@ -608,7 +614,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((S + kWRows - 1) / kWRows, H, B);
-  flash_wgmma_kernel<D><<<grid, kWThreads, wgmma_smem_bytes<D>(), s>>>(
+  flash_wgmma_kernel<D><<<grid, kWThreads, wgmma_smem_bytes<(D + 63) / 64 * 64>(), s>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), S, H, KV, causal, window,
       scale * kLog2e);
   return cudaGetLastError();
@@ -722,7 +728,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, i
 // (dtype 0: float32, 1: bfloat16), row-major, contiguous, 16-byte aligned,
 // on the device of `stream`; H % KV == 0; causal 0/1; window <= 0 for none.
 // variant 0 simt (f32, D a multiple of 8 up to 256), 1 mma (bf16, D in
-// {16, 32, 256}), 2 wgmma (bf16, D in {64, 128}). Returns
+// {16, 32, 256}), 2 wgmma (bf16, D in {64, 112, 128}). Returns
 // cudaErrorInvalidValue for a variant that cannot serve the call, else
 // cudaGetLastError().
 extern "C" int attn_flash_fwd(const void* q, const void* k, const void* v, void* out,
@@ -730,7 +736,7 @@ extern "C" int attn_flash_fwd(const void* q, const void* k, const void* v, void*
                               int causal, int window, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0 ||
-      !(D == 16 || D == 32 || D == 64 || D == 128 || D == 256))
+      !(D == 16 || D == 32 || D == 64 || D == 112 || D == 128 || D == 256))
     return static_cast<int>(cudaErrorInvalidValue);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -738,6 +744,7 @@ extern "C" int attn_flash_fwd(const void* q, const void* k, const void* v, void*
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     switch (D) {
       case 64: return static_cast<int>(launch_wgmma<64>(q, k, v, out, B, S, H, KV, causal, window, scale, s));
+      case 112: return static_cast<int>(launch_wgmma<112>(q, k, v, out, B, S, H, KV, causal, window, scale, s));
       case 128: return static_cast<int>(launch_wgmma<128>(q, k, v, out, B, S, H, KV, causal, window, scale, s));
       default: return static_cast<int>(cudaErrorInvalidValue);
     }

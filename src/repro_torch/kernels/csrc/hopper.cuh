@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the wgmma kernels: tensor maps
-// for TMA, mbarriers, TMA tile loads, wgmma descriptors and instructions,
-// and register reallocation between warpgroups. Raw PTX; no CUTLASS.
+// Hopper (sm_90a) building blocks shared by the kernels: tensor maps for
+// TMA, mbarriers, TMA tile loads, wgmma descriptors and instructions,
+// register reallocation between warpgroups, and mma.sync with ldmatrix and
+// the bf16 hi + lo split (decode attention, the linear scan). Raw PTX; no
+// CUTLASS.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle and read
 // by wgmma through descriptors that name the same swizzle. A tile's rows
@@ -138,6 +140,57 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy (TMA) accesses of the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- device: mma.sync and ldmatrix ----------------------------------------
+
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 (16 contiguous bytes). r[j] holds, for matrix j,
+// row lane / 4, columns 2 (lane % 4) and 2 (lane % 4) + 1; with .trans, the
+// transpose (rows 2 (lane % 4) and + 1 of column lane / 4).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// C (16 x 8, f32) += A (16 x 16, bf16) B (16 x 8, bf16), one warp. Lane l
+// (g = l / 4, t = l % 4): a = {(g, 2t..), (g + 8, 2t..), (g, 2t + 8..),
+// (g + 8, 2t + 8..)}, b = {(2t.., g), (2t + 8.., g)} as (k, n), c = {(g,
+// 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values as a bf16x2 register (round to nearest), and the residual
+// x - bf16(x) of each, rounded the same way: x = hi + lo to about 2^-17.
+__device__ __forceinline__ uint32_t bf16x2(float lo_half, float hi_half) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi_half), "f"(lo_half));
+  return r;
+}
+
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  hi = bf16x2(x0, x1);
+  const float h0 = __uint_as_float(hi << 16), h1 = __uint_as_float(hi & 0xFFFF0000u);
+  lo = bf16x2(x0 - h0, x1 - h1);
 }
 
 // ---- device: warpgroups ---------------------------------------------------

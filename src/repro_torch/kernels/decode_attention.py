@@ -11,16 +11,18 @@ with length <= 0 masks every logit to -1e30, so its softmax is uniform over
 all T rows (the mean of v), as in the reference oracle.
 
 ``decode_attention`` launches ``csrc/decode_attention.cu`` for CUDA tensors
-and counts each call that launched in ``launches``; for CPU tensors it is
+and counts each call that launched in ``launches`` and, by the variant
+``kernel_variant`` names, in ``launches_by_variant``; for CPU tensors it is
 ``decode_attention_ref``, the plain PyTorch version. There is no fallback:
-a CUDA tensor launches the kernel or raises. The kernel reads only each
-row's valid prefix (all T rows when length <= 0), so rows past the length
-never touch the result, whatever they hold.
+a CUDA tensor launches the named variant or raises. The kernel reads only
+each row's valid prefix (all T rows when length <= 0), so rows past the
+length never touch the result, whatever they hold.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -32,11 +34,34 @@ NEG_INF = -1e30
 launches = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 MAX_GROUP = 32          # query heads per kv-head the kernel takes
+TMA_MAX_GROUP = 16      # ... and its tma variant (one 16-row mma tile)
+TMA_HEAD_DIMS = (64, 112, 128, 256)  # whole 64-column boxes of a tensor map
 TILE = 64               # cache rows per tile (chunks are multiples of it)
 MIN_CHUNK = 256         # smallest split of a prefix
-TARGET_BLOCKS = 2048    # about 16 blocks per SM on the H100's 132
+#: Blocks each variant's split plan aims for: the tma variant keeps 2
+#: blocks an SM busy for about two waves; the simt plan is the one that
+#: variant had before the tma variant existed.
+TARGET_BLOCKS = {"tma": 512, "simt": 2048}
+#: The kernel's variants, by the number the C entry takes.
+VARIANTS = ("simt", "tma")
+#: The same launches split by variant.
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+def kernel_variant(dtype: torch.dtype, B: int, H: int, KV: int, D: int,
+                   T: int) -> str:
+    """The variant of ``csrc/decode_attention.cu`` that serves this call:
+    ``"tma"`` (a TMA ring of K/V tiles and mma.sync) for bfloat16 at D in
+    ``TMA_HEAD_DIMS`` (every model's) with at most ``TMA_MAX_GROUP`` query
+    heads per kv-head, ``"simt"`` otherwise (float32, and bfloat16 at
+    larger groups or D < 64). Every B and T are served by both, so they do
+    not enter the rule."""
+    if (dtype == torch.bfloat16 and D in TMA_HEAD_DIMS
+            and H // max(KV, 1) <= TMA_MAX_GROUP):
+        return "tma"
+    return "simt"
 
 
 def softmax_scale(d: int) -> float:
@@ -64,12 +89,17 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, H, D)
 
 
-def split_plan(B: int, KV: int, T: int):
-    """(nsplit, chunk): how the kernel cuts each sequence's cache. One
+def split_plan(B: int, KV: int, T: int, variant: str = "tma",
+               target: Optional[int] = None, min_chunk: int = MIN_CHUNK):
+    """(nsplit, chunk): how ``variant`` cuts each sequence's cache. One
     block per (sequence, kv-head, chunk); chunks multiply until the blocks
-    fill the card, but stay at least ``MIN_CHUNK`` rows."""
-    want = -(-TARGET_BLOCKS // max(B * KV, 1))
-    nsplit = max(1, min(want, -(-T // MIN_CHUNK)))
+    reach ``target`` (``TARGET_BLOCKS[variant]``), but stay at least
+    ``min_chunk`` rows. The tma plan was tuned on the H100 by
+    ``scripts/tune_decode_scan.py``, which sweeps both: 4 splits at qwen3's
+    and hymba's 16 slots, 1 at the decode_32k layer."""
+    target = TARGET_BLOCKS[variant] if target is None else target
+    want = -(-target // max(B * KV, 1))
+    nsplit = max(1, min(want, -(-T // min_chunk)))
     chunk = -(-T // nsplit)
     chunk = -(-chunk // TILE) * TILE
     return -(-T // chunk), chunk
@@ -103,7 +133,7 @@ def _entry():
 
     fn = build.load("decode_attention").attn_decode
     if fn.argtypes is None:  # ints would pass as 32-bit, cutting pointers
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -145,18 +175,31 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if B * H == 0:
         return out
-    nsplit, chunk = split_plan(B, KV, T)
+    variant = kernel_variant(q.dtype, B, H, KV, D, T)
+    launch_variant(variant, q, k_cache, v_cache, length, out)
+    launches += 1
+    launches_by_variant[variant] += 1
+    return out
+
+
+def launch_variant(variant: str, q, k_cache, v_cache, length, out,
+                   plan=None) -> None:
+    """One launch of ``variant`` through the C entry on checked CUDA
+    inputs, with ``plan`` = (nsplit, chunk) from ``split_plan`` (its
+    defaults where None; other targets when the plan is tuned); counts
+    nothing (``decode_attention`` does)."""
+    B, H, D = q.shape
+    T, KV = k_cache.shape[1], k_cache.shape[2]
+    nsplit, chunk = plan or split_plan(B, KV, T, variant)
     part = (torch.empty(B * H * nsplit * (D + 2), dtype=torch.float32,
                         device=q.device) if nsplit > 1 else None)
-    fn = _entry()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            length.data_ptr(), out.data_ptr(),
-            part.data_ptr() if part is not None else None, DTYPES[q.dtype],
-            B, H, KV, T, D, nsplit, chunk, stream)
+    rc = _entry()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                  length.data_ptr(), out.data_ptr(),
+                  part.data_ptr() if part is not None else None,
+                  DTYPES[q.dtype], VARIANTS.index(variant), B, H, KV, T, D,
+                  nsplit, chunk, stream)
     if rc != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
-                           f"error {rc} at (B, H, KV, T, D) = "
+        raise RuntimeError(f"decode_attention kernel ({variant}) launch "
+                           f"failed: CUDA error {rc} at (B, H, KV, T, D) = "
                            f"({B}, {H}, {KV}, {T}, {D})")
-    launches += 1
-    return out

@@ -31,10 +31,12 @@ from repro_torch.kernels.decode_attention import NEG_INF, softmax_scale
 launches = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 #: The kernel's variants, by the number the C entry takes.
 VARIANTS = ("simt", "mma", "wgmma")
-WGMMA_HEAD_DIMS = (64, 128)
+#: Head dims the wgmma variant serves (D = 112 as D = 128, zero-padded);
+#: the mma variant serves the others.
+WGMMA_HEAD_DIMS = (64, 112, 128)
 #: The same launches split by variant.
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 

@@ -17,8 +17,9 @@ v's dtype, the math and the state in float32.
 - ``linear_scan_step``: one decode step (``ref.linear_scan_step``); it has
   no kernel, in the reference or here.
 - ``linear_scan``: launches ``csrc/linear_scan.cu`` for CUDA tensors and
-  counts each call that launched in ``launches``; for CPU tensors it is
-  ``linear_scan_chunked_ref``. Prefill only (zero initial state). The
+  counts each call that launched in ``launches`` and, by the variant
+  ``kernel_variant`` names, in ``launches_by_variant``; for CPU tensors it
+  is ``linear_scan_chunked_ref``. Prefill only (zero initial state). The
   final state, where asked for, is formed outside the kernel from the
   decay-weighted keys, as the reference's kernel path does
   (``ssm_scan.py:121-126``); the models do not ask for it.
@@ -36,7 +37,13 @@ import torch
 launches = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_DK = 1024          # the kernel keeps a (Dk, 32) state slice on chip
+MAX_DK = 1024          # the simt variant keeps a (Dk, 32) state slice on chip
+#: The kernel's variants, by the number the C entry takes.
+VARIANTS = ("simt", "mma")
+#: The same launches split by variant.
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
+#: Chunk lengths the mma variant is built for.
+CHUNKS = (64, 128)
 
 State = Tuple[torch.Tensor, torch.Tensor]
 
@@ -134,6 +141,32 @@ def final_state(k, v, decay) -> State:
             torch.einsum("bshk->bhk", kd))
 
 
+def kernel_variant(dtype: torch.dtype, B: int, S: int, H: int, Dk: int,
+                   Dv: int) -> str:
+    """The variant of ``csrc/linear_scan.cu`` that serves this call:
+    ``"mma"`` (chunk-parallel, tensor cores) for bfloat16 at any shape,
+    ``"simt"`` (chunks in order, all math f32) for float32."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def chunk_length(Dk: int, Dv: int) -> int:
+    """The mma variant's chunk length L: 64, or 128 where the state is large
+    (its f32 scratch of B H (S / L) Dk Dv, written once and read twice,
+    halves with L)."""
+    return 128 if Dk * Dv >= 128 * 128 else 64
+
+
+def scan_plan(B: int, S: int, H: int, Dk: int, Dv: int, chunk: int = None):
+    """(L, nC, state_floats, al_floats): the mma variant's chunk length, the
+    number of chunks and its two f32 scratch sizes (each chunk's state S_c
+    and n_c, then the state entering it; each chunk's decay product)."""
+    L = chunk or chunk_length(Dk, Dv)
+    if L not in CHUNKS:
+        raise ValueError(f"chunk must be one of {CHUNKS}, got {L}")
+    nC = -(-S // L)
+    return L, nC, B * H * nC * (Dk * Dv + Dk), B * H * nC
+
+
 def _check(q, k, v, decay):
     if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 \
             or v.shape[:3] != q.shape[:3] or decay.shape != q.shape[:3]:
@@ -154,8 +187,8 @@ def _entry():
 
     fn = build.load("linear_scan").linear_scan
     if fn.argtypes is None:  # ints would pass as 32-bit, cutting pointers
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                       + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -174,21 +207,53 @@ def linear_scan(q, k, v, decay, want_final_state: bool = True
         raise ValueError(f"linear_scan has no kernel for {q.device}")
     B, S, H, Dk = q.shape
     Dv = v.shape[-1]
-    if Dk > MAX_DK:
-        raise ValueError(f"the kernel takes Dk <= {MAX_DK}, got {Dk}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last dimension must be contiguous")
+    variant = kernel_variant(q.dtype, B, S, H, Dk, Dv)
+    if variant == "simt" and Dk > MAX_DK:
+        raise ValueError(f"the simt variant takes Dk <= {MAX_DK}, got {Dk}")
     a = decay.float().contiguous()
     y = torch.empty((B, S, H, Dv), dtype=v.dtype, device=v.device)
     if y.numel():
-        rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), a.data_ptr(),
-                      y.data_ptr(), DTYPES[q.dtype], B, S, H, Dk, Dv,
-                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                      torch.cuda.current_stream(q.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"linear_scan kernel launch failed: CUDA error "
-                               f"{rc} at (B, S, H, Dk, Dv) = ({B}, {S}, {H}, "
-                               f"{Dk}, {Dv})")
+        launch_variant(variant, q, k, v, a, y)
         launches += 1
+        launches_by_variant[variant] += 1
     return y, (final_state(k, v, a) if want_final_state else None)
+
+
+def _vec_bits(*tensors) -> int:
+    """Bit i set where tensor i's base and outer strides allow 16-byte
+    loads (bf16: multiples of 8 elements)."""
+    bits = 0
+    for i, t in enumerate(tensors):
+        if t.data_ptr() % 16 == 0 and all(st % 8 == 0
+                                          for st in t.stride()[:3]):
+            bits |= 1 << i
+    return bits
+
+
+def launch_variant(variant: str, q, k, v, a, y, chunk: int = None) -> None:
+    """One launch of ``variant`` through the C entry on checked CUDA inputs
+    (``a`` the float32 decays, contiguous), into ``y``; ``chunk`` overrides
+    the mma variant's ``chunk_length``. Counts nothing (``linear_scan``
+    does)."""
+    B, S, H, Dk = q.shape
+    Dv = v.shape[-1]
+    states = al = None
+    L = 0
+    if variant == "mma":
+        L, _, n_states, n_al = scan_plan(B, S, H, Dk, Dv, chunk)
+        states = torch.empty(n_states, dtype=torch.float32, device=q.device)
+        al = torch.empty(n_al, dtype=torch.float32, device=q.device)
+    rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), a.data_ptr(),
+                  y.data_ptr(), None if states is None else states.data_ptr(),
+                  None if al is None else al.data_ptr(), DTYPES[q.dtype],
+                  VARIANTS.index(variant), L, B, S, H, Dk, Dv,
+                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                  _vec_bits(q, k, v),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"linear_scan kernel ({variant}) launch failed: "
+                           f"CUDA error {rc} at (B, S, H, Dk, Dv) = ({B}, {S}, "
+                           f"{H}, {Dk}, {Dv})")

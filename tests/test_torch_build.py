@@ -4,10 +4,12 @@ on the CPU: no nvcc and no card are needed.
 - ``build.library_path`` keys each kernel's library by its source, every
   shared header (``csrc/*.cuh``) and the nvcc flags, so an edited header
   never loads a stale library.
-- ``kernel_variant`` of flash attention and of the MoE grouped matmul is a
-  pure function of dtype and shape: the main path's bf16 shapes take the
-  Hopper kernels (TMA and wgmma), float32 the SIMT kernels, and shapes the
-  wgmma kernels do not serve the mma.sync ones.
+- ``kernel_variant`` of flash attention, decode attention, the MoE grouped
+  matmul and the linear scan is a pure function of dtype and shape: the
+  main path's bf16 shapes take the Hopper kernels (TMA and wgmma for flash
+  and the grouped matmul, a bulk-copy ring for decode, the chunk-parallel
+  tensor-core scan), float32 the SIMT kernels, and shapes the Hopper
+  kernels do not serve the older ones.
 """
 
 import shutil
@@ -17,10 +19,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.config.registry import get_arch  # noqa: E402
+from repro_torch.config.shapes import SHAPES  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
+from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.models.moe import capacity  # noqa: E402
+from repro_torch.models.ssm import _ssd_dims, _xlstm_dims  # noqa: E402
 
 
 @pytest.fixture
@@ -74,10 +80,110 @@ def test_every_kernel_source_is_listed():
     (torch.float32, 2, 4096, 16, 8, 128, None, "simt"),
     (torch.float32, 1, 300, 25, 5, 64, 100, "simt"),
     (torch.float32, 1, 64, 2, 2, 256, None, "simt"),
+    # kimi-k2's 64/8 heads of 112: wgmma at D = 128, zero-padded (the
+    # entry refuses mma there), ragged S and windows alike
+    (torch.bfloat16, 1, 4096, 64, 8, 112, None, "wgmma"),
+    (torch.bfloat16, 1, 333, 64, 8, 112, 100, "wgmma"),
+    (torch.float32, 1, 4096, 64, 8, 112, None, "simt"),
 ])
 def test_flash_kernel_variant(dtype, B, S, H, KV, D, window, want):
     assert fa.kernel_variant(dtype, B, S, H, KV, D, window) == want
     assert want in fa.VARIANTS
+
+
+def _attn(arch):
+    c = get_arch(arch)
+    return c.num_heads, c.num_kv_heads, c.head_dim
+
+
+@pytest.mark.parametrize("dtype,B,arch,T,want", [
+    # every model's decode step: 16 slots (decode_32k: its batch) in bf16
+    (torch.bfloat16, 16, "qwen3-1.7b", 4096, "tma"),
+    (torch.bfloat16, 16, "dbrx-132b", 4096, "tma"),
+    (torch.bfloat16, 16, "hymba-1.5b", 1024, "tma"),
+    (torch.bfloat16, 16, "kimi-k2-1t-a32b", 4096, "tma"),
+    (torch.bfloat16, 16, "glm4-9b", 4096, "tma"),          # G = 16
+    (torch.bfloat16, SHAPES["decode_32k"].global_batch, "qwen3-1.7b",
+     SHAPES["decode_32k"].seq_len, "tma"),
+    (torch.float32, 16, "qwen3-1.7b", 4096, "simt"),
+    (torch.float32, 16, "kimi-k2-1t-a32b", 4096, "simt"),
+])
+def test_decode_kernel_variant_on_model_shapes(dtype, B, arch, T, want):
+    H, KV, D = _attn(arch)
+    assert D in da.HEAD_DIMS
+    assert da.kernel_variant(dtype, B, H, KV, D, T) == want
+    assert want in da.VARIANTS
+
+
+@pytest.mark.parametrize("dtype,B,H,KV,D,T,want", [
+    (torch.bfloat16, 3, 8, 1, 128, 1000, "tma"),    # MQA
+    (torch.bfloat16, 3, 8, 8, 128, 777, "tma"),     # MHA, T not a tile multiple
+    (torch.bfloat16, 3, 8, 4, 256, 900, "tma"),
+    (torch.bfloat16, 1, 8, 4, 112, 1, "tma"),       # one cache row
+    (torch.bfloat16, 5, 16, 16, 16, 100, "simt"),   # D < 64: no whole box
+    (torch.bfloat16, 3, 8, 2, 32, 300, "simt"),
+    (torch.bfloat16, 2, 32, 1, 64, 100, "simt"),    # G = 32: past one mma tile
+    (torch.bfloat16, 2, 34, 2, 128, 64, "simt"),    # G = 17
+    (torch.float32, 3, 8, 1, 128, 1000, "simt"),
+])
+def test_decode_kernel_variant_edges(dtype, B, H, KV, D, T, want):
+    assert da.kernel_variant(dtype, B, H, KV, D, T) == want
+
+
+def _scan_shapes():
+    hymba, xlstm = get_arch("hymba-1.5b"), get_arch("xlstm-350m")
+    H, dk, _, dv = _ssd_dims(hymba)
+    Hx, _, dh = _xlstm_dims(xlstm)
+    return dict(hymba=(2, 4096, H, dk, dv), xlstm=(1, 1024, Hx, dh, dh),
+                xlstm_long=(2, 4096, Hx, dh, dh))
+
+
+@pytest.mark.parametrize("dtype,shape,want", [
+    (torch.bfloat16, "hymba", "mma"),
+    (torch.bfloat16, "xlstm", "mma"),
+    (torch.bfloat16, "xlstm_long", "mma"),
+    (torch.float32, "hymba", "simt"),
+    (torch.float32, "xlstm", "simt"),
+])
+def test_scan_kernel_variant_on_model_shapes(dtype, shape, want):
+    assert ss.kernel_variant(dtype, *_scan_shapes()[shape]) == want
+    assert want in ss.VARIANTS
+
+
+@pytest.mark.parametrize("dtype,shape,want", [
+    (torch.bfloat16, (1, 333, 3, 16, 128), "mma"),   # S not a chunk multiple
+    (torch.bfloat16, (2, 200, 2, 8, 16), "mma"),     # Dk, Dv under one tile
+    (torch.bfloat16, (2, 64, 4, 64, 40), "mma"),     # Dv not a multiple of 16
+    (torch.bfloat16, (1, 1, 1, 1024, 8), "mma"),
+    (torch.float32, (2, 200, 2, 8, 16), "simt"),
+])
+def test_scan_kernel_variant_edges(dtype, shape, want):
+    assert ss.kernel_variant(dtype, *shape) == want
+
+
+def test_model_shapes_of_the_new_designs():
+    s = _scan_shapes()
+    assert s["hymba"] == (2, 4096, 25, 16, 128)
+    assert s["xlstm"][2:] == (4, 512, 512)
+    assert _attn("kimi-k2-1t-a32b") == (64, 8, 112)
+    assert _attn("glm4-9b")[0] // _attn("glm4-9b")[1] == da.TMA_MAX_GROUP
+
+
+def test_cpu_calls_launch_no_decode_or_scan_variant():
+    """CPU tensors take the plain versions: no count moves."""
+    before = (da.launches, dict(da.launches_by_variant), ss.launches,
+              dict(ss.launches_by_variant))
+    q = torch.randn(2, 8, 112, dtype=torch.bfloat16)
+    kv = torch.randn(2, 40, 2, 112, dtype=torch.bfloat16)
+    length = torch.tensor([0, 17], dtype=torch.int32)
+    assert da.decode_attention(q, kv, kv, length).shape == q.shape
+    x = torch.randn(1, 70, 2, 16, dtype=torch.bfloat16)
+    y, _ = ss.linear_scan(x, x, x, torch.rand(1, 70, 2))
+    assert y.shape == x.shape
+    assert (da.launches, da.launches_by_variant, ss.launches,
+            ss.launches_by_variant) == before
+    assert set(da.launches_by_variant) == set(da.VARIANTS)
+    assert set(ss.launches_by_variant) == set(ss.VARIANTS)
 
 
 def _moe_shapes():

@@ -188,7 +188,10 @@ def randn(g, shape, dtype):
     # D = 128 and 64, G = 16, a window over several tiles, one row
     (1, 333, 8, 2, 128, True, None), (2, 200, 4, 2, 64, True, None),
     (1, 300, 16, 1, 128, True, None), (1, 700, 25, 5, 64, True, 256),
-    (2, 130, 4, 4, 128, False, None), (1, 1, 4, 2, 128, True, None)])
+    (2, 130, 4, 4, 128, False, None), (1, 1, 4, 2, 128, True, None),
+    # kimi-k2's 64/8 heads of 112 (wgmma at D = 128, zero-padded)
+    (1, 300, 64, 8, 112, True, None), (2, 130, 8, 2, 112, False, None),
+    (1, 500, 16, 8, 112, True, 128)])
 def test_flash_matches_plain(cuda, dtype, B, S, H, KV, D, causal, window):
     g = torch.Generator(device=cuda).manual_seed(S * 7 + H)
     q = randn(g, (B, S, H, D), dtype)
@@ -196,7 +199,7 @@ def test_flash_matches_plain(cuda, dtype, B, S, H, KV, D, causal, window):
     v = randn(g, (B, S, KV, D), dtype)
     variant = fa.kernel_variant(dtype, B, S, H, KV, D, window)
     assert variant == ("simt" if dtype == torch.float32 else
-                       "wgmma" if D in (64, 128) else "mma")
+                       "wgmma" if D in fa.WGMMA_HEAD_DIMS else "mma")
     before, before_v = fa.launches, fa.launches_by_variant[variant]
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -227,8 +230,9 @@ CUDA_ERROR_INVALID_VALUE = 1
     (torch.float32, 128, "wgmma"), (torch.bfloat16, 32, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "mma"),
     (torch.bfloat16, 64, "simt"),
-    # D = 64 and 128 are the wgmma variant's alone
-    (torch.bfloat16, 64, "mma"), (torch.bfloat16, 128, "mma")])
+    # D = 64, 112 and 128 are the wgmma variant's alone
+    (torch.bfloat16, 64, "mma"), (torch.bfloat16, 128, "mma"),
+    (torch.bfloat16, 112, "mma")])
 def test_flash_entry_refuses_a_variant_that_cannot_serve(cuda, dtype, D,
                                                          variant):
     q = torch.zeros((1, 64, 2, D), device=cuda, dtype=dtype)
@@ -244,7 +248,9 @@ def test_flash_entry_refuses_a_variant_that_cannot_serve(cuda, dtype, D,
 @pytest.mark.parametrize("B,H,KV,D,T", [
     (2, 4, 2, 64, 128), (3, 8, 1, 32, 256), (2, 8, 8, 128, 64),
     (16, 16, 8, 128, 4096), (4, 32, 2, 128, 1000), (2, 4, 2, 256, 777),
-    (5, 16, 16, 16, 100)])
+    (5, 16, 16, 16, 100),
+    # kimi-k2's 64/8 heads of 112; G = 32 (the simt variant in bf16 too)
+    (3, 64, 8, 112, 777), (16, 64, 8, 112, 4096), (2, 32, 1, 64, 300)])
 def test_decode_matches_plain(cuda, dtype, B, H, KV, D, T):
     g = torch.Generator(device=cuda).manual_seed(T + H)
     q = randn(g, (B, H, D), dtype)
@@ -253,10 +259,14 @@ def test_decode_matches_plain(cuda, dtype, B, H, KV, D, T):
     length = torch.randint(1, T + 1, (B,), device=cuda, generator=g).int()
     length[0] = 0
     length[1] = T
-    before = da.launches
+    variant = da.kernel_variant(dtype, B, H, KV, D, T)
+    assert variant == ("tma" if dtype == torch.bfloat16 and H // KV <= 16
+                       and D >= 64 else "simt")
+    before, before_v = da.launches, da.launches_by_variant[variant]
     got = da.decode_attention(q, k, v, length)
     torch.cuda.synchronize()
     assert da.launches == before + 1 and got.dtype == dtype
+    assert da.launches_by_variant[variant] == before_v + 1
     exp = da.decode_attention_ref(q, k, v, length)
     tol = ATTN_TOL[dtype][1]
     np.testing.assert_allclose(got.float().cpu(), exp.float().cpu(),
@@ -269,6 +279,18 @@ def test_decode_matches_plain(cuda, dtype, B, H, KV, D, T):
             v2[b, n:] = float("nan")
     again = da.decode_attention(q, k2, v2, length)
     assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("dtype,H,KV,D,variant", [
+    (torch.float32, 8, 2, 64, "tma"), (torch.bfloat16, 32, 1, 64, "tma"),
+    (torch.bfloat16, 8, 2, 32, "tma")])
+def test_decode_entry_refuses_a_variant_that_cannot_serve(cuda, dtype, H, KV,
+                                                          D, variant):
+    q = torch.zeros((2, H, D), device=cuda, dtype=dtype)
+    kv = torch.zeros((2, 64, KV, D), device=cuda, dtype=dtype)
+    length = torch.full((2,), 64, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error 1 "):
+        da.launch_variant(variant, q, kv, kv, length, torch.empty_like(q))
 
 
 def test_decode_rejects_bad_inputs(cuda):
@@ -368,17 +390,22 @@ def test_moe_gmm_entry_refuses_a_variant_that_cannot_serve(cuda, dtype,
 @pytest.mark.parametrize("B,S,H,Dk,Dv,lo,hi", [
     (2, 128, 2, 16, 32, 0.6, 1.0), (1, 333, 3, 16, 128, 0.6, 1.0),
     (2, 200, 2, 8, 16, 0.01, 0.2), (1, 130, 1, 512, 512, 0.9, 1.0),
-    (2, 64, 4, 64, 40, 0.5, 1.0)])
+    (2, 64, 4, 64, 40, 0.5, 1.0),
+    # hymba-1.5b's SSD heads and xlstm-350m's mLSTM state at their widths
+    (2, 4096, 25, 16, 128, 0.3, 1.0), (1, 1024, 4, 512, 512, 0.5, 1.0)])
 def test_linear_scan_matches_plain(cuda, dtype, B, S, H, Dk, Dv, lo, hi):
     g = torch.Generator(device=cuda).manual_seed(S + Dk)
     q = randn(g, (B, S, H, Dk), dtype)
     k = (0.5 * torch.randn((B, S, H, Dk), device=cuda, generator=g)).to(dtype)
     v = randn(g, (B, S, H, Dv), dtype)
     a = lo + (hi - lo) * torch.rand((B, S, H), device=cuda, generator=g)
-    before = ss.launches
+    variant = ss.kernel_variant(dtype, B, S, H, Dk, Dv)
+    assert variant == ("mma" if dtype == torch.bfloat16 else "simt")
+    before, before_v = ss.launches, ss.launches_by_variant[variant]
     got, (S_f, n_f) = ss.linear_scan(q, k, v, a)
     torch.cuda.synchronize()
     assert ss.launches == before + 1 and got.dtype == dtype
+    assert ss.launches_by_variant[variant] == before_v + 1
     assert bool(torch.isfinite(got).all())
     exp, (S_e, n_e) = ss.linear_scan_chunked_ref(q.float(), k.float(),
                                                  v.float(), a)
@@ -387,6 +414,22 @@ def test_linear_scan_matches_plain(cuda, dtype, B, S, H, Dk, Dv, lo, hi):
                                rtol=tol)
     for s_, e in ((S_f, S_e), (n_f, n_e)):
         np.testing.assert_allclose(s_.cpu(), e.cpu(), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dtype,chunk", [(torch.float32, 64),
+                                         (torch.bfloat16, 96)])
+def test_linear_scan_entry_refuses_what_mma_cannot_serve(cuda, dtype, chunk):
+    """The mma variant takes bf16 and chunks of 64 or 128 only."""
+    q = torch.zeros((1, 64, 2, 16), device=cuda, dtype=dtype)
+    a = torch.ones((1, 64, 2), device=cuda)
+    y = torch.empty_like(q)
+    states = torch.empty(4096, device=cuda)
+    rc = ss._entry()(q.data_ptr(), q.data_ptr(), q.data_ptr(), a.data_ptr(),
+                     y.data_ptr(), states.data_ptr(), states.data_ptr(),
+                     ss.DTYPES[dtype], ss.VARIANTS.index("mma"), chunk, 1, 64,
+                     2, 16, 16, *q.stride()[:3], *q.stride()[:3],
+                     *q.stride()[:3], 7, torch.cuda.current_stream().cuda_stream)
+    assert rc == CUDA_ERROR_INVALID_VALUE
 
 
 def test_linear_scan_strided_views(cuda):

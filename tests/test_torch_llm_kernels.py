@@ -18,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 from repro.kernels.decode_attention import decode_attention as pallas_decode  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
@@ -139,6 +140,41 @@ def test_flash_gradient_matches_reference_vjp(causal, window):
         close(t.grad, e, GRAD_TOL)
 
 
+# kimi-k2's head dim of 112 (64/8 heads at full width), at a small size:
+# the plain versions against the reference's Pallas kernels in interpret
+# mode (``repro.kernels.ops``, impl="interpret")
+D112_FLASH = [(1, 64, 8, 1, True, None), (2, 48, 4, 2, True, 16),
+              (1, 40, 4, 4, False, None)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,causal,window", D112_FLASH)
+def test_attention_ref_at_d112_matches_pallas_interpret(B, S, H, KV, causal,
+                                                        window):
+    D = 112
+    arrays = draw(112 + S, (B, S, H, D), (B, S, KV, D), (B, S, KV, D))
+    (jq, jk, jv), (q, k, v) = both(arrays, "float32")
+    exp = ref_ops.attention(jq, jk, jv, causal=causal, window=window,
+                            impl="interpret")
+    close(fa.attention_ref(q, k, v, causal=causal, window=window), exp,
+          F32_TOL)
+    close(fa.flash_attention(q, k, v, causal=causal, window=window), exp,
+          F32_TOL)
+
+
+@pytest.mark.parametrize("B,H,KV,T,length", [(2, 8, 1, 64, [1, 64]),
+                                             (3, 8, 2, 100, [0, 37, 100])])
+def test_decode_ref_at_d112_matches_pallas_interpret(B, H, KV, T, length):
+    D = 112
+    arrays = draw(212 + T, (B, H, D), (B, T, KV, D), (B, T, KV, D))
+    lengths = np.array(length, np.int32)
+    (jq, jk, jv), (q, k, v) = both(arrays, "float32")
+    exp = ref_ops.decode_attention(jq, jk, jv, jnp.asarray(lengths),
+                                   impl="interpret")
+    lt = torch.as_tensor(lengths)
+    close(da.decode_attention_ref(q, k, v, lt), exp, F32_TOL)
+    close(da.decode_attention(q, k, v, lt), exp, F32_TOL)
+
+
 # ---- decode attention ----
 
 @pytest.mark.parametrize("B,H,KV,D,T", DECODE_CASES)
@@ -255,3 +291,37 @@ def test_decode_split_plan_covers_the_cache(B, KV, T):
     assert chunk % da.TILE == 0 and nsplit * chunk >= T
     assert (nsplit - 1) * chunk < T
     assert nsplit == 1 or chunk >= da.MIN_CHUNK
+
+
+@pytest.mark.parametrize("B,KV,T", [(16, 8, 4096), (128, 8, 32768),
+                                    (16, 5, 1024), (2, 4, 777), (1, 1, 1)])
+def test_decode_simt_split_plan_covers_the_cache(B, KV, T):
+    """The simt variant keeps its own plan (more, smaller splits)."""
+    nsplit, chunk = da.split_plan(B, KV, T, "simt")
+    assert chunk % da.TILE == 0 and nsplit * chunk >= T > (nsplit - 1) * chunk
+    assert nsplit == 1 or chunk >= da.MIN_CHUNK
+    assert nsplit >= da.split_plan(B, KV, T)[0]
+
+
+def test_decode_split_plan_tuned_for_tma():
+    """The tma variant's plan as tuned on the card: 4 splits at qwen3's and
+    hymba's 16 slots, one block per (sequence, kv-head) at decode_32k."""
+    assert da.split_plan(16, 8, 4096) == (4, 1024)
+    assert da.split_plan(16, 5, 1024) == (4, 256)
+    assert da.split_plan(128, 8, 32768) == (1, 32768)
+
+
+@pytest.mark.parametrize("target,min_chunk", [(256, 256), (512, 1024),
+                                              (4096, 256), (4096, 1024)])
+@pytest.mark.parametrize("B,KV,T", [(16, 8, 4096), (128, 8, 32768),
+                                    (16, 5, 1024), (16, 8, 777)])
+def test_decode_split_plan_takes_a_target(B, KV, T, target, min_chunk):
+    """The plans the tuning sweep times (scripts/tune_decode_scan.py) cover
+    the cache as the shipped one does, and the defaults are the shipped
+    plan."""
+    nsplit, chunk = da.split_plan(B, KV, T, "tma", target, min_chunk)
+    assert chunk % da.TILE == 0 and nsplit * chunk >= T > (nsplit - 1) * chunk
+    assert nsplit == 1 or chunk >= min_chunk
+    assert nsplit <= max(1, -(-target // (B * KV)))
+    assert da.split_plan(B, KV, T, "tma", da.TARGET_BLOCKS["tma"],
+                         da.MIN_CHUNK) == da.split_plan(B, KV, T)

@@ -240,3 +240,25 @@ def test_mlstm_key_scale_rounds_in_bf16():
     exp = (qk[..., 512:] / torch.tensor(22.625, dtype=torch.bfloat16)
            * i_gate[..., None].bfloat16())
     assert torch.equal(k, exp)
+
+
+# ---- the chunk-parallel kernel's plan (host side) ----
+
+@pytest.mark.parametrize("shape,chunk,scratch_mb", [
+    ((2, 4096, 25, 16, 128), 64, 26.4),      # hymba-1.5b's SSD heads
+    ((1, 1024, 4, 512, 512), 128, 33.6),     # xlstm-350m's mLSTM
+    ((2, 4096, 4, 512, 512), 128, 269.0),
+    ((1, 333, 3, 16, 128), 64, 0.149),
+    ((2, 200, 2, 8, 16), 64, 0.0087),
+])
+def test_scan_plan_covers_the_sequence(shape, chunk, scratch_mb):
+    B, S, H, Dk, Dv = shape
+    L, nC, n_states, n_al = ss.scan_plan(*shape)
+    assert L == chunk == ss.chunk_length(Dk, Dv) and L in ss.CHUNKS
+    assert nC * L >= S > (nC - 1) * L
+    assert n_states == B * H * nC * (Dk * Dv + Dk) and n_al == B * H * nC
+    assert abs(n_states * 4 / 1e6 - scratch_mb) <= 0.05 * scratch_mb
+    for L2 in ss.CHUNKS:   # either length serves any shape
+        assert ss.scan_plan(*shape, chunk=L2)[1] == -(-S // L2)
+    with pytest.raises(ValueError):
+        ss.scan_plan(*shape, chunk=96)
