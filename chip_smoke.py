@@ -30,9 +30,14 @@ non-zero with a traceback, and no phase's failure is caught.
    main path's shapes (VGG16's 4096x4096 fc leaf at n = 10 and ratios 0.01
    and 0.1, a 3x3x512x512 conv leaf at 0.01, LeNet-5's leaves at n = 5)
    and at edge shapes (negative and out-of-range indices, an index repeated
-   within a row, size 1, n*k not a multiple of the block, int32 indices).
-   Times of the kernel, the plain version and one ``index_add_`` call (the
-   library yardstick, never called by the port), beside the bound.
+   within a row, size 1, n*k not a multiple of the block, int32 indices,
+   outputs of T - 1, T and T + 1 floats for the tile size T, every entry
+   on one position, a small output with a long stream). Each row names the
+   variant ``kernel_variant`` picked (its count must advance). Times of
+   the kernel, of the other design that serves the shape
+   (``scatter_add.serves``) held to the same tolerance, of the plain
+   version and of one ``index_add_`` call (the library yardstick, never
+   called by the port), beside the bound.
 5. fl-main — real federated training through ``ExperimentSpec.build(
    device="cuda").run()``: the ``real-fl-two-job`` preset (LeNet-5 + CNN-B,
    40 devices, greedy) for 3 rounds and one VGG16 job (100 devices,
@@ -40,10 +45,13 @@ non-zero with a traceback, and no phase's failure is caught.
    finite, accuracy in [0, 1], one ``fused_round`` span per record. Then,
    on VGG16's last cohort, the locals are trained again from the runtime's
    global params and aggregated by ``fedavg_compressed(ratio=0.01,
-   impl="cuda")``: one kernel launch per leaf (32), the result within
-   1e-5 relative plus absolute of ``impl="ref"``, and at ratio 1.0 of
-   ``fedavg``. The VGG16 round is split into local SGD, FedAvg and eval,
-   and the compressed aggregation into top-k and kernel time; VGG16's
+   impl="cuda")``: one kernel launch per leaf (32), by variant as the
+   leaves' shapes name them (fc2 ``atomic``, every bias ``tile``), the
+   result within 1e-5 relative plus absolute of ``impl="ref"``, and at
+   ratio 1.0 of ``fedavg``. The VGG16 round is split into local SGD,
+   FedAvg and eval, and the compressed aggregation into top-k and kernel
+   time, and each leaf's stream is timed on its variant and on the other
+   design (as in phase 4), each held to the plain version; VGG16's
    first-round loss at group A's lr of 0.05 and at 0.01 is recorded beside
    the lr the job runs at (``VGG16_LR``).
 
@@ -92,7 +100,10 @@ non-zero with a traceback, and no phase's failure is caught.
    (1, 1024) and (2, 4096), S = 333 and 1000, strong decay, each scan row
    with its variant (mma in bf16, simt in f32) and, in bf16, the old
    design's (simt) time; norms of
-   (8192, 2048), (8192, 6144), (16, 6144), 4097 rows of 1600, d = 100.
+   (8192, 2048), (8192, 6144), (16, 6144), 4097 rows of 1600, d = 100, one
+   row, and d at the resident variant's limit and one vector past it, each
+   row with its variant and the old design's (warp) time, held to the same
+   tolerance.
    Times of the kernel, the plain version and the library call
    (``torch.bmm``; ``rms_norm``; none computes the scan), beside the bound
    (the scan's at its inputs' type's rate).
@@ -455,6 +466,8 @@ def topk_stream(torch, dev, n, size, ratio, seed, idx_dtype):
 
 
 def edge_streams(torch, dev):
+    from repro_torch.kernels import scatter_add as sa
+
     g = torch.Generator(device=dev).manual_seed(77)
 
     def rand(n, k, size, lo=0, dtype=None):
@@ -476,6 +489,18 @@ def edge_streams(torch, dev):
     out.append(("size-1", v, i, w, 1))
     out.append(("ragged-nk-int32", *rand(7, 301, 1000, dtype=torch.int32),
                 1000))
+    # the edges of the tile size T: one tile, one short of it, one past it
+    # (with an entry in the second tile's one float), 800 entries each
+    T = sa.TILE
+    out.append(("size T", *rand(2, 400, T), T))
+    out.append(("size T - 1", *rand(2, 400, T - 1), T - 1))
+    v, i, w = rand(2, 400, T + 1)
+    i[0, :3] = T
+    out.append(("size T + 1", v, i, w, T + 1))
+    v, i, w = rand(10, 3000, 4 * T)
+    i.fill_(T + 77)
+    out.append(("every entry on one position", v, i, w, 4 * T))
+    out.append(("small output, long stream", *rand(20, 1000, 1000), 1000))
     return out
 
 
@@ -485,6 +510,13 @@ def scatter_bound(n, k, idx_bytes, size):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def other_scatter_variant(sa, n, k, size, variant):
+    """The design beside ``variant`` that the C entry takes for this shape
+    (``scatter_add.serves``), or None."""
+    return next((v for v in sa.VARIANTS
+                 if v != variant and sa.serves(v, n, k, size)), None)
 
 
 def phase_fl_kernels(torch, dev) -> dict:
@@ -508,15 +540,30 @@ def phase_fl_kernels(torch, dev) -> dict:
     cases += [(label, v, i, w, size, False)
               for label, v, i, w, size in edge_streams(torch, dev)]
     for label, vals, idx, w, size, is_main in cases:
+        n, k = vals.shape
+        variant = sa.kernel_variant(n, k, size)
+        before = sa.launches_by_variant[variant]
         got = sa.scatter_add(vals, idx, w, size)
         exp = sa.scatter_add_ref(vals, idx, w, size)
         torch.cuda.synchronize()
+        if sa.launches_by_variant[variant] != before + 1:
+            raise AssertionError(f"scatter_add {label}: the {variant} "
+                                 "variant did not launch")
         err = check_close(got, exp, f"scatter_add {label}")
-        n, k = vals.shape
         big = n * k >= 10 ** 6
         kernel_ms = cuda_time_ms(
             torch, lambda: sa.scatter_add(vals, idx, w, size),
             inner=10 if big else 50)
+        # the other design that serves the shape, held to the same
+        # tolerance
+        other = other_scatter_variant(sa, n, k, size, variant)
+        other_ms = None
+        if other:
+            check_close(sa.launch_variant(other, vals, idx, w, size), exp,
+                        f"scatter_add {label} ({other})")
+            other_ms = cuda_time_ms(
+                torch, lambda: sa.launch_variant(other, vals, idx, w, size),
+                inner=10 if big else 50)
         plain_ms = cuda_time_ms(
             torch, lambda: sa.scatter_add_ref(vals, idx, w, size),
             inner=5 if big else 20)
@@ -528,11 +575,12 @@ def phase_fl_kernels(torch, dev) -> dict:
                     0, flat_idx, (vals * w[:, None]).reshape(-1)),
                 inner=10 if big else 50)
         bound_ms, bound_by = scatter_bound(n, k, idx.element_size(), size)
-        rows.append(dict(label=label, n=n, k=k, size=size,
-                         idx_dtype=str(idx.dtype), max_abs_err=err,
-                         kernel_ms=kernel_ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound_ms,
-                         bound_by=bound_by))
+        rows.append(dict(label=label, main=is_main, n=n, k=k, size=size,
+                         idx_dtype=str(idx.dtype), variant=variant,
+                         max_abs_err=err, kernel_ms=kernel_ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         other_variant=other, other_ms=other_ms))
     del cases
     torch.cuda.empty_cache()
     return {"scatter_add": rows}
@@ -623,6 +671,7 @@ def phase_fl_main(torch) -> dict:
     # The main path: both training runs and the compressed aggregation,
     # with every launch count at 0 just before and read just after.
     sa.launches = 0
+    sa.launches_by_variant.update(dict.fromkeys(sa.VARIANTS, 0))
     sched_score.launches = 0
     two = get_preset("real-fl-two-job", scheduler="greedy", rounds=3)
     two_res, two_wall, two_spans, _ = run_traced(torch, two)
@@ -642,10 +691,26 @@ def phase_fl_main(torch) -> dict:
     comp, comp_s = timed(torch, lambda: fedavg_compressed(
         g, locals_, w, ratio, impl="cuda"))
     launches, plan_launches = sa.launches, sched_score.launches
+    by_variant = dict(sa.launches_by_variant)
     leaves = len(tree_leaves(g))
     if launches != leaves:
         raise AssertionError(f"scatter_add launched {launches} times for "
                              f"{leaves} leaves")
+    # each leaf's variant by the rule: fc2 (4096 x 4096) atomic, every bias
+    # tile; the launches by variant must add up to them
+    leaf_variants = [sa.kernel_variant(
+        int(ids.numel()), topk_count(ratio, gl.numel()), gl.numel())
+        for gl in tree_leaves(g)]
+    want = {v: leaf_variants.count(v) for v in sa.VARIANTS}
+    if by_variant != want:
+        raise AssertionError(f"scatter_add launches by variant {by_variant},"
+                             f" the leaves want {want}")
+    fc2 = [v for gl, v in zip(tree_leaves(g), leaf_variants)
+           if tuple(gl.shape) == (4096, 4096)]
+    biases = {v for gl, v in zip(tree_leaves(g), leaf_variants)
+              if gl.dim() == 1}
+    if fc2 != ["atomic"] or biases != {"tile"}:
+        raise AssertionError(f"fc2 took {fc2} and the biases {biases}")
 
     ref = fedavg_compressed(g, locals_, w, ratio, impl="ref")
     err = max(check_close(a, b, "fedavg_compressed cuda vs ref")
@@ -696,6 +761,25 @@ def phase_fl_main(torch) -> dict:
         inner=3)
     topk_ms = cuda_time_ms(torch, topk_only, inner=3)
     kernel_ms = cuda_time_ms(torch, kernel_only, inner=3)
+    # each leaf's stream of this cohort: its variant beside the other
+    # design (phase 4's rule), each held to the plain version
+    per_leaf = []
+    for v, ix, size in streams:
+        n, k = v.shape
+        variant = sa.kernel_variant(n, k, size)
+        other = other_scatter_variant(sa, n, k, size, variant)
+        exp = sa.scatter_add_ref(v, ix, wn, size)
+        row = dict(size=size, k=k, variant=variant, other_variant=other)
+        for key, var in (("ms", variant), ("other_ms", other)):
+            if var is None:
+                row[key] = None
+                continue
+            check_close(sa.launch_variant(var, v, ix, wn, size), exp,
+                        f"fedavg_compressed leaf of {size} ({var})")
+            row[key] = cuda_time_ms(
+                torch, lambda: sa.launch_variant(var, v, ix, wn, size),
+                inner=5)
+        per_leaf.append(row)
     return dict(
         two_job=dict(preset="real-fl-two-job", scheduler="greedy",
                      rounds=len(two_res.records),
@@ -718,11 +802,12 @@ def phase_fl_main(torch) -> dict:
                    fedavg_compressed_s=comp_s,
                    first_round_loss_by_lr=lr_probe),
         compressed=dict(ratio=ratio, leaves=leaves, launches=launches,
+                        launches_by_variant=by_variant,
                         plan_stats_launches=plan_launches,
                         max_abs_err_vs_ref=err,
                         ratio_1_max_abs_err_vs_fedavg=full_err,
                         total_ms=total_ms, topk_ms=topk_ms,
-                        kernel_ms=kernel_ms))
+                        kernel_ms=kernel_ms, per_leaf=per_leaf))
 
 
 # ---- phase 6 -------------------------------------------------------------
@@ -1386,6 +1471,13 @@ NORM_CASES = [
     ("(16, 6144)", (16, 6144), ("bfloat16",)),
     ("odd rows, d = 1600", (4097, 1600), BOTH),
     ("d = 100 (no 16-byte vectors)", (33, 100), BOTH),
+    ("one row", (1, 6144), BOTH),
+    # the resident variant's widest rows (2048 vectors) and one vector past
+    ("bf16 d at the resident limit", (300, 16384), ("bfloat16",)),
+    ("bf16 d at the resident limit, few rows", (16, 16384), ("bfloat16",)),
+    ("bf16 d one vector past the limit", (300, 16392), ("bfloat16",)),
+    ("f32 d at the resident limit", (300, 8192), ("float32",)),
+    ("f32 d one vector past the limit", (300, 8196), ("float32",)),
 ]
 
 
@@ -1558,10 +1650,24 @@ def phase_lm_kernels_2(torch, dev) -> dict:
             dt = tdtype(torch, dname)
             x = (2 * torch.randn(shape, device=dev, generator=g)).to(dt)
             s = 1 + 0.1 * torch.randn(shape[-1:], device=dev, generator=g)
+            variant = rn.kernel_variant(dt, *shape)
+            before = rn.launches_by_variant[variant]
             got = rn.rmsnorm(x, s)
             exp = rn.rmsnorm_ref(x, s)
             torch.cuda.synchronize()
+            if rn.launches_by_variant[variant] != before + 1:
+                raise AssertionError(f"rmsnorm {label} {dname}: the "
+                                     f"{variant} variant did not launch")
             err = attn_close(got, exp, NORM_TOL[dname], f"rmsnorm {label}")
+            # the old design (warp) beside the one the rule picks, held to
+            # the same tolerance
+            other = "warp" if variant != "warp" else None
+            y_old = None
+            if other:
+                y_old = torch.empty_like(x)
+                rn.launch_variant(other, x, s, y_old)
+                attn_close(y_old, exp, NORM_TOL[dname],
+                           f"rmsnorm {label} ({other})")
             row_err = None
             if dname == "bfloat16":
                 row_err = bf16_row_err(
@@ -1576,15 +1682,21 @@ def phase_lm_kernels_2(torch, dev) -> dict:
             library_ms = cuda_time_ms(
                 torch, lambda: F.rms_norm(x, shape[-1:], s_lib, 1e-6),
                 inner=20)
+            other_ms = None
+            if other:
+                other_ms = cuda_time_ms(
+                    torch, lambda: rn.launch_variant(other, x, s, y_old),
+                    inner=20)
             n = x.numel()
             bound_ms, bound_by = attn_bound(
                 2 * n * x.element_size() + 4 * shape[-1], 4.0 * n, "float32")
             norm_rows.append(dict(
-                label=label, dtype=dname, shape=list(shape), max_abs_err=err,
-                bf16_row_err_vs_f32=row_err, kernel_ms=kernel_ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by))
-            del x, s, s_lib
+                label=label, dtype=dname, shape=list(shape), variant=variant,
+                max_abs_err=err, bf16_row_err_vs_f32=row_err,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, other_variant=other,
+                other_ms=other_ms))
+            del x, s, s_lib, y_old
     torch.cuda.empty_cache()
     return {"moe_gmm": gmm_rows, "linear_scan": scan_rows,
             "rmsnorm": norm_rows}
@@ -2123,7 +2235,9 @@ def main(argv=None) -> int:
         max_abs_err=max(r["max_abs_err"] for r in fl_kern["scatter_add"]),
         ms=fc["kernel_ms"], plain_ms=fc["plain_ms"],
         bound_ms=fc["bound_ms"], bound_by=fc["bound_by"],
-        library_ms=fc["library_ms"], shapes=fl_kern["scatter_add"])]
+        library_ms=fc["library_ms"],
+        launches_by_variant=fl_main["compressed"]["launches_by_variant"],
+        shapes=fl_kern["scatter_add"], **variant_keys(fc))]
     for name, cu, line, label, launches in (
             ("flash_attention", "flash_attention.cu", "flash_attention.py:35",
              "qwen3-1.7b prefill", lm_serve["prefill"]["flash_launches"]),

@@ -10,76 +10,203 @@
 //
 // The TPU kernel tiles the OUTPUT and folds a (BK, BS) one-hot matrix with
 // an MXU matmul per program: O(n * k * size) work, there only because the
-// TPU has no scatter. Hopper has native float atomics in device memory, so
-// this kernel does the O(n * k) scatter directly.
+// TPU cannot scatter. Hopper has float atomics in shared and device memory,
+// so both variants here do the O(n * k) scatter directly.
 //
-// Bound on this card: bytes. The work is n*k reads of a value and an index,
-// n weights, and one float atomic per kept entry into an output the wrapper
-// zeroes (torch.zeros). At VGG16's fc leaf (size 16,777,216, n = 10,
-// k = 167,772, int64 idx) that is n*k*12 + 4n + 4*size = 87 MB, about
-// 26 us at 3.35 TB/s, 67 MB of it the output.
+// Bound on this card: bytes. The work reads n*k values and indices and n
+// weights and writes the output once. At VGG16's fc2 leaf (size
+// 16,777,216, n = 10, k = 167,772, int64 idx) that is n*k*12 + 4n +
+// 4*size = 87 MB, about 26 us at 3.35 TB/s, 67 MB of it the output.
 //
-// Design for that bound:
-// - One thread per (i, j) entry and a grid-stride loop: neighbouring
-//   threads read neighbouring vals/idx, so those reads are coalesced. The
-//   atomics land where the top-k indices fall; within a device's row the
-//   indices are distinct, so at most n terms meet at one position and the
-//   atomics rarely contend.
-// - The weight multiply the JAX wrapper did outside its kernel is fused:
-//   w[i] (served from L1/L2, n floats) times vals in f32, then atomicAdd.
-// - int64 indices (what torch.topk returns) and int32 are both read as
-//   they are, so the wrapper needs no cast pass.
-// - Offsets are 64-bit: n*k can pass 2^31 at full-ratio leaves.
+// Two variants, chosen by the wrapper from the shape alone
+// (kernels/scatter_add.py::kernel_variant):
 //
-// Numerics: float atomics sum in an order that changes from run to run,
-// so the result is not bitwise reproducible on the card; it agrees with the
-// plain version within 1e-5 relative plus absolute.
+// - tile (an output of at most kTile floats; the wrapper sends streams of
+//   at most 1024 entries, one a thread): one block zeroes the output in
+//   shared memory, adds the whole stream with shared-memory atomics and
+//   writes it with 16-byte stores. One launch, no fill: VGG16's biases and
+//   first conv, LeNet-5's small leaves.
+// - atomic (the first design, every other output): one thread per entry
+//   and one float atomic into device memory, into an output the caller
+//   zeroed. At fc2 on random top-k streams the atomics land on about 1.68 M
+//   distinct sectors of a 67 MB output that the 50 MB L2 cannot hold; a
+//   trained cohort's stream finds far more of the L2. Sorting the stream
+//   by output tile first (no atomics in device memory, no fill) won on the
+//   random streams and lost on the trained one, so it is not kept.
+//
+// The weight multiply is fused (w[i] from L1/L2). int64 indices (what
+// torch.topk returns) and int32 are read as they are. Offsets are 64-bit:
+// n*k can pass 2^31 at full-ratio leaves.
+//
+// Numerics: both variants sum with float atomics (in shared memory for
+// tile) in an order that changes from run to run, so results are not
+// bitwise reproducible; they agree with the plain version within 1e-5
+// relative plus absolute.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;  // 16 blocks per SM on the H100's 132
+constexpr int64_t kTile = 16384;            // floats the tile variant holds (64 KB)
+constexpr int kTileThreads = 1024;          // the tile variant's one block
+constexpr int kAtomicThreads = 256;
+constexpr int kMaxAtomicBlocks = 132 * 16;  // 16 blocks per SM on the H100's 132
+
+enum Variant { kAtomic = 0, kTileVariant = 1 };
 
 template <typename Idx>
-__global__ void __launch_bounds__(kThreads)
-scatter_add_kernel(const float* __restrict__ vals, const Idx* __restrict__ idx,
-                   const float* __restrict__ w, float* __restrict__ out,
-                   int64_t total, int64_t k, int64_t size) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       t < total; t += stride) {
-    const int64_t p = static_cast<int64_t>(__ldg(idx + t));
-    if (p < 0 || p >= size) continue;
+__device__ __forceinline__ bool kept(const Idx* idx, int64_t e, int64_t size, int64_t* p) {
+  *p = static_cast<int64_t>(__ldg(idx + e));
+  return *p >= 0 && *p < size;
+}
+
+// The device row of entry e: 32-bit division where the stream allows it
+// (a 64-bit division is about a hundred instructions).
+__device__ __forceinline__ int64_t row_of(int64_t e, int64_t k, bool narrow) {
+  return narrow ? static_cast<int64_t>(static_cast<uint32_t>(e) / static_cast<uint32_t>(k))
+                : e / k;
+}
+
+// Entries e0, e0 + stride, ... (N of them) of the stream, every load issued
+// before any is used, so they are in flight together: p[j] the position
+// (-1 where the entry is padding, past `size` or past the stream) and
+// v[j] = w[row] * vals[e].
+template <typename Idx, int N>
+__device__ __forceinline__ void load_entries(const float* __restrict__ vals,
+                                             const Idx* __restrict__ idx,
+                                             const float* __restrict__ w, int64_t e0, int stride,
+                                             int64_t total, int64_t k, int64_t size,
+                                             int64_t (&p)[N], float (&v)[N]) {
+  const bool narrow = total <= 0xffffffffLL;
+  float raw[N], wt[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int64_t e = e0 + static_cast<int64_t>(j) * stride;
+    const bool in = e < total;
+    p[j] = in ? static_cast<int64_t>(__ldg(idx + e)) : -1;
+    raw[j] = in ? __ldg(vals + e) : 0.f;
+    wt[j] = in ? __ldg(w + row_of(e, k, narrow)) : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (p[j] >= size) p[j] = -1;
+    v[j] = wt[j] * raw[j];
+  }
+}
+
+// Writes len floats of a shared-memory tile to out (16-byte aligned), in
+// 16-byte stores where four floats remain.
+__device__ __forceinline__ void store_tile(const float* tile, float* out, int64_t len) {
+  const int64_t v4 = len >> 2;
+  const float4* t4 = reinterpret_cast<const float4*>(tile);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  for (int64_t i = threadIdx.x; i < v4; i += blockDim.x) o4[i] = t4[i];
+  for (int64_t i = (v4 << 2) + threadIdx.x; i < len; i += blockDim.x) out[i] = tile[i];
+}
+
+__device__ __forceinline__ void zero_tile(float* tile, int64_t len) {
+  float4* t4 = reinterpret_cast<float4*>(tile);
+  const int64_t v4 = (len + 3) >> 2;
+  for (int64_t i = threadIdx.x; i < v4; i += blockDim.x) t4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// ---- atomic: the first design --------------------------------------------
+
+template <typename Idx>
+__global__ void __launch_bounds__(kAtomicThreads)
+atomic_kernel(const float* __restrict__ vals, const Idx* __restrict__ idx,
+              const float* __restrict__ w, float* __restrict__ out, int64_t total, int64_t k,
+              int64_t size) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kAtomicThreads;
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * kAtomicThreads + threadIdx.x; t < total;
+       t += stride) {
+    int64_t p;
+    if (!kept(idx, t, size, &p)) continue;
     atomicAdd(out + p, __ldg(w + t / k) * __ldg(vals + t));
   }
+}
+
+// ---- tile: one block, the whole output in shared memory -------------------
+
+// grid 1, kTileThreads threads, (size rounded up to 4) * 4 bytes of shared memory
+template <typename Idx>
+__global__ void __launch_bounds__(kTileThreads)
+tile_kernel(const float* __restrict__ vals, const Idx* __restrict__ idx,
+            const float* __restrict__ w, float* __restrict__ out, int64_t total, int64_t k,
+            int64_t size) {
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);
+  zero_tile(tile, size);
+  __syncthreads();
+  // four entries a thread in flight at a time
+  constexpr int kUnroll = 4;
+  for (int64_t base = threadIdx.x; base < total; base += kUnroll * kTileThreads) {
+    int64_t p[kUnroll];
+    float v[kUnroll];
+    load_entries<Idx, kUnroll>(vals, idx, w, base, kTileThreads, total, k, size, p, v);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (p[u] >= 0) atomicAdd(tile + p[u], v[u]);
+  }
+  __syncthreads();
+  store_tile(tile, out, size);
+}
+
+// Lets `kernel` take up to `bytes` of dynamic shared memory; set once per
+// kernel, to the most any launch of it takes.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
+  if (*done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  *done = e == cudaSuccess;
+  return e;
+}
+
+template <typename Idx>
+cudaError_t launch(int variant, const float* v, const Idx* ix, const float* w, float* o,
+                   int64_t total, int64_t k, int64_t size, cudaStream_t s) {
+  if (variant == kAtomic) {
+    int64_t blocks = (total + kAtomicThreads - 1) / kAtomicThreads;
+    if (blocks > kMaxAtomicBlocks) blocks = kMaxAtomicBlocks;
+    atomic_kernel<Idx><<<static_cast<unsigned>(blocks), kAtomicThreads, 0, s>>>(v, ix, w, o,
+                                                                                total, k, size);
+    return cudaGetLastError();
+  }
+  if (size > kTile) return cudaErrorInvalidValue;
+  const size_t bytes = static_cast<size_t>((size + 3) & ~int64_t{3}) * sizeof(float);
+  static bool tile_smem = false;
+  const cudaError_t e = allow_smem(tile_kernel<Idx>, kTile * sizeof(float), &tile_smem);
+  if (e != cudaSuccess) return e;
+  tile_kernel<Idx><<<1, kTileThreads, bytes, s>>>(v, ix, w, o, total, k, size);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // vals (n, k) f32, idx (n, k) int32 (idx_bytes = 4) or int64 (8), w (n,)
-// f32, all row-major and contiguous; out (size,) f32, zeroed by the caller;
-// all on the device of `stream`. Returns cudaGetLastError() after the launch.
-extern "C" int fl_scatter_add(const void* vals, const void* idx, int idx_bytes,
-                              const void* w, void* out, long long n, long long k,
-                              long long size, void* stream) {
+// f32, all row-major and contiguous; out (size,) f32, 16-byte aligned;
+// all on the device of `stream`. variant 0 (atomic) adds into an out the
+// caller zeroed; 1 (tile) writes every element of out. A variant that
+// cannot serve the shape is refused with cudaErrorInvalidValue. Returns
+// cudaGetLastError() after the launch.
+extern "C" int fl_scatter_add(const void* vals, const void* idx, int idx_bytes, const void* w,
+                              void* out, int variant, long long n, long long k, long long size,
+                              void* stream) {
   const int64_t total = static_cast<int64_t>(n) * k;
-  if (total <= 0) return 0;
   if (idx_bytes != 4 && idx_bytes != 8) return static_cast<int>(cudaErrorInvalidValue);
-  int64_t blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if ((variant != kAtomic && variant != kTileVariant) || size < 1 ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (total <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* v = static_cast<const float*>(vals);
   const float* wt = static_cast<const float*>(w);
   float* o = static_cast<float*>(out);
-  if (idx_bytes == 8) {
-    scatter_add_kernel<int64_t><<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
-        v, static_cast<const int64_t*>(idx), wt, o, total, k, size);
-  } else {
-    scatter_add_kernel<int32_t><<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
-        v, static_cast<const int32_t*>(idx), wt, o, total, k, size);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e =
+      idx_bytes == 8
+          ? launch<int64_t>(variant, v, static_cast<const int64_t*>(idx), wt, o, total, k, size, s)
+          : launch<int32_t>(variant, v, static_cast<const int32_t*>(idx), wt, o, total, k, size, s);
+  return static_cast<int>(e);
 }

@@ -9,12 +9,14 @@ one flat accumulator:
 ``vals`` (n, k) f32, ``idx`` (n, k) int32/int64, ``weights`` (n,) f32 ->
 (size,) f32. A negative index is padding and is dropped, as is an index
 >= size. ``scatter_add`` launches ``csrc/scatter_add.cu`` for CUDA tensors
-and counts each launch in ``launches``; for CPU tensors it is
-``scatter_add_ref``, the plain PyTorch version. There is no fallback: a CUDA
-tensor launches the kernel or raises. The kernel sums with float atomics,
-in an order that changes from run to run, so on the card the result is not
-bitwise reproducible; it agrees with the plain version within 1e-5
-relative plus absolute.
+and counts each call that launched in ``launches`` and, by the variant
+``kernel_variant`` names, in ``launches_by_variant``; for CPU tensors it is
+``scatter_add_ref``, the plain PyTorch version. There is no fallback: a
+CUDA tensor launches the named variant or raises. Both variants sum with
+float atomics (in shared memory for ``tile``), in an order that changes
+from run to run, so on the card the result is not bitwise
+reproducible; it agrees with the plain version within 1e-5 relative plus
+absolute.
 """
 
 from __future__ import annotations
@@ -28,6 +30,34 @@ import torch
 launches = 0
 
 INDEX_TYPES = (torch.int32, torch.int64)
+#: The kernel's variants, by the number the C entry takes.
+VARIANTS = ("atomic", "tile")
+#: The same launches split by variant.
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
+TILE = 16384             # output floats the tile variant holds in shared memory
+TILE_MAX_ENTRIES = 1024  # entries the rule sends to it: one a thread
+
+
+def serves(variant: str, n: int, k: int, size: int) -> bool:
+    """Whether the C entry takes ``variant`` for an (n, k) stream into
+    ``size`` floats: ``atomic`` every shape, ``tile`` an output of at most
+    ``TILE`` floats (a stream of any length)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+    return variant == "atomic" or size <= TILE
+
+
+def kernel_variant(n: int, k: int, size: int) -> str:
+    """The variant of ``csrc/scatter_add.cu`` that serves an (n, k) stream
+    into ``size`` floats: ``"tile"`` (one block, the output in shared
+    memory, one launch and no fill) where it serves the shape and the
+    stream has at most ``TILE_MAX_ENTRIES`` entries (VGG16's biases and
+    first conv, LeNet-5's small leaves), ``"atomic"`` (float atomics into a
+    zeroed output, the first design) otherwise. Both index types are served
+    alike, so the rule takes the shape alone."""
+    if serves("tile", n, k, size) and n * k <= TILE_MAX_ENTRIES:
+        return "tile"
+    return "atomic"
 
 
 def scatter_add_ref(vals: torch.Tensor, idx: torch.Tensor,
@@ -65,7 +95,7 @@ def _entry():
     fn = build.load("scatter_add").fl_scatter_add
     if fn.argtypes is None:  # ints would pass as 32-bit, cutting pointers
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p] + [
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [
             ctypes.c_longlong] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -90,15 +120,30 @@ def scatter_add(vals: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     n, k = vals.shape
-    out = torch.zeros(size, dtype=torch.float32, device=vals.device)
     if n * k == 0:
-        return out
-    fn = _entry()
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    rc = fn(vals.data_ptr(), idx.data_ptr(), idx.element_size(),
-            weights.data_ptr(), out.data_ptr(), n, k, size, stream)
-    if rc != 0:
-        raise RuntimeError(f"scatter_add kernel launch failed: CUDA error "
-                           f"{rc} at (n, k, size) = ({n}, {k}, {size})")
+        return torch.zeros(size, dtype=torch.float32, device=vals.device)
+    variant = kernel_variant(n, k, size)
+    out = launch_variant(variant, vals, idx, weights, size)
     launches += 1
+    launches_by_variant[variant] += 1
+    return out
+
+
+def launch_variant(variant: str, vals: torch.Tensor, idx: torch.Tensor,
+                   weights: torch.Tensor, size: int) -> torch.Tensor:
+    """One launch of ``variant`` through the C entry on checked,
+    contiguous CUDA inputs with n * k > 0; returns the (size,) output.
+    ``atomic`` adds into a ``torch.zeros`` output; ``tile`` writes every
+    element of a ``torch.empty`` one. Counts nothing (``scatter_add``
+    does)."""
+    n, k = vals.shape
+    out = (torch.zeros if variant == "atomic" else torch.empty)(
+        size, dtype=torch.float32, device=vals.device)
+    rc = _entry()(vals.data_ptr(), idx.data_ptr(), idx.element_size(),
+                  weights.data_ptr(), out.data_ptr(), VARIANTS.index(variant),
+                  n, k, size, torch.cuda.current_stream(vals.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"scatter_add kernel ({variant}) launch failed: "
+                           f"CUDA error {rc} at (n, k, size) = ({n}, {k}, "
+                           f"{size})")
     return out

@@ -10,8 +10,14 @@ on the CPU: no nvcc and no card are needed.
   and the grouped matmul, a bulk-copy ring for decode, the chunk-parallel
   tensor-core scan), float32 the SIMT kernels, and shapes the Hopper
   kernels do not serve the older ones.
+- ``kernel_variant`` of the compressed-FedAvg scatter-add names ``tile``
+  for VGG16's biases and first conv and ``atomic`` for its other leaves,
+  and only a variant that ``serves`` the shape; RMSNorm's names
+  ``resident`` for rows that split into at most 2048 16-byte vectors and
+  ``warp`` for the rest.
 """
 
+import math
 import shutil
 
 import pytest
@@ -24,8 +30,14 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import scatter_add as sa  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
+from repro_torch.configs.paper_models import lenet5  # noqa: E402
+from repro_torch.models.cnn_zoo import cnn_init  # noqa: E402
 from repro_torch.models.moe import capacity  # noqa: E402
+from repro_torch.optim.compression import topk_count  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.models.ssm import _ssd_dims, _xlstm_dims  # noqa: E402
 
 
@@ -248,3 +260,162 @@ def test_cpu_calls_launch_no_variant():
     assert (fa.launches_by_variant, gmm.launches_by_variant) == before
     assert set(fa.launches_by_variant) == set(fa.VARIANTS)
     assert set(gmm.launches_by_variant) == set(gmm.VARIANTS)
+
+
+@pytest.mark.parametrize("name", ["scatter_add", "rmsnorm"])
+def test_library_path_follows_each_redesigned_source(csrc_copy, name):
+    paths = {n: build.library_path(n) for n in build.KERNELS}
+    src = csrc_copy / f"{name}.cu"
+    src.write_bytes(src.read_bytes() + b"\n// edited\n")
+    for n in build.KERNELS:
+        assert (build.library_path(n) != paths[n]) == (n == name)
+
+
+# ---- the compressed-FedAvg scatter-add --------------------------------------
+
+@pytest.fixture(scope="module")
+def vgg16_leaves():
+    return [tuple(leaf.shape) for leaf in
+            tree_leaves(cnn_init(get_arch("paper-vgg16"), device="cpu"))]
+
+
+@pytest.mark.parametrize("j", range(32))
+def test_scatter_kernel_variant_on_vgg16_leaves(vgg16_leaves, j):
+    """A cohort of 10 at ratio 0.01, as ``fedavg_compressed`` sends it:
+    the biases and the first conv (3 x 3 x 3 x 64 = 1728 floats, 170
+    entries) fit one tile; the other convs and the fc weights, fc2 (4096 x
+    4096) among them, take the atomics."""
+    assert len(vgg16_leaves) == 32
+    shape = vgg16_leaves[j]
+    size = math.prod(shape)
+    want = "tile" if len(shape) == 1 or shape == (3, 3, 3, 64) else "atomic"
+    assert sa.kernel_variant(10, topk_count(0.01, size), size) == want
+    assert want in sa.VARIANTS
+
+
+def test_vgg16_leaves_by_variant(vgg16_leaves):
+    sizes = [math.prod(s) for s in vgg16_leaves]
+    got = [sa.kernel_variant(10, topk_count(0.01, n), n) for n in sizes]
+    by_shape = dict(zip(vgg16_leaves, got))
+    assert by_shape[(4096, 4096)] == "atomic"           # fc2
+    assert by_shape[(512, 4096)] == "atomic"            # fc1
+    assert by_shape[(3, 3, 512, 512)] == "atomic"
+    assert {v for s, v in zip(vgg16_leaves, got) if len(s) == 1} == {"tile"}
+    assert (got.count("tile"), got.count("atomic")) == (17, 15)
+
+
+LENET5_VARIANTS = ["tile", "tile", "tile", "tile", "tile", "atomic", "tile",
+                   "tile", "tile", "tile"]
+
+
+@pytest.mark.parametrize("j", range(10))
+def test_scatter_kernel_variant_on_lenet5_leaves(j):
+    """Phase 4's LeNet-5 leaves at n = 5, ratio 0.01: fc1 (784 x 120) is
+    past one tile, every other leaf fits one tile."""
+    leaves = tree_leaves(cnn_init(lenet5(), device="cpu"))
+    assert len(leaves) == len(LENET5_VARIANTS)
+    size = leaves[j].numel()
+    assert (sa.kernel_variant(5, topk_count(0.01, size), size)
+            == LENET5_VARIANTS[j])
+
+
+@pytest.mark.parametrize("n,k,size,want", [
+    (10, 40, sa.TILE, "tile"),                      # exactly one tile
+    (10, 40, sa.TILE - 1, "tile"),
+    (10, 40, sa.TILE + 1, "atomic"),                # one float past it
+    (1, sa.TILE_MAX_ENTRIES, 1000, "tile"),
+    (2, 513, 1000, "atomic"),                       # a long stream, one tile
+    (3, 7, 1, "tile"),
+    (1, sa.TILE_MAX_ENTRIES + 1, 10, "atomic"),    # a long stream, size 10
+    (10, 1, 4096 * 4096, "atomic"),                # VGG16's fc2, 10 entries
+    (10, 167_772, 4096 * 4096, "atomic"),          # fc2 at ratio 0.01
+    (0, 5, 10 ** 6, "atomic"),
+    (0, 5, 10, "tile"),
+])
+def test_scatter_kernel_variant_edges(n, k, size, want):
+    assert sa.kernel_variant(n, k, size) == want
+    assert sa.serves(want, n, k, size)
+
+
+@pytest.mark.parametrize("variant,n,k,size,want", [
+    ("atomic", 10, 167_772, 4096 * 4096, True),
+    ("atomic", 1, 1, 1, True),
+    ("tile", 10, 41, 4096, True),
+    ("tile", 2, 513, 1000, True),       # any stream length
+    ("tile", 1, 1, sa.TILE, True),
+    ("tile", 1, 1, sa.TILE + 1, False),  # past one tile
+    ("tile", 10, 167_772, 4096 * 4096, False),
+])
+def test_scatter_serves(variant, n, k, size, want):
+    """The shapes the C entry takes, stated once on the Python side."""
+    assert sa.serves(variant, n, k, size) is want
+
+
+def test_scatter_serves_names_only_its_variants():
+    with pytest.raises(ValueError, match="nonesuch"):
+        sa.serves("nonesuch", 1, 1, 1)
+
+
+@pytest.mark.parametrize("size", [1, 100, sa.TILE - 1, sa.TILE, sa.TILE + 1,
+                                  2 ** 23, 2 ** 24 + 3])
+@pytest.mark.parametrize("nk", [(1, 1), (10, 102), (10, 103), (3, 5000)])
+def test_scatter_kernel_variant_serves_its_shape(size, nk):
+    """The rule names a variant the entry takes, and ``tile`` wherever it
+    serves a stream of at most ``TILE_MAX_ENTRIES`` entries."""
+    n, k = nk
+    got = sa.kernel_variant(n, k, size)
+    assert sa.serves(got, n, k, size)
+    assert (got == "tile") == (size <= sa.TILE
+                               and n * k <= sa.TILE_MAX_ENTRIES)
+
+
+# ---- RMSNorm ----------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,shape", [
+    # chip_smoke.py's phase-8 shapes
+    (torch.float32, (8192, 2048)), (torch.bfloat16, (8192, 2048)),
+    (torch.bfloat16, (8192, 6144)), (torch.bfloat16, (16, 6144)),
+    (torch.float32, (4097, 1600)), (torch.bfloat16, (4097, 1600)),
+    (torch.bfloat16, (1, 6144)), (torch.float32, (1, 6144)),
+    # the widest rows served: 2048 vectors
+    (torch.bfloat16, (300, 16384)), (torch.float16, (16, 16384)),
+    (torch.float32, (300, 8192)),
+    # d = 100 is 25 float32 vectors
+    (torch.float32, (33, 100)),
+])
+def test_rmsnorm_kernel_variant_resident(dtype, shape):
+    assert rn.kernel_variant(dtype, *shape) == "resident"
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (33, 100)), (torch.float16, (33, 100)),  # 12.5 vectors
+    (torch.bfloat16, (300, 16392)), (torch.float16, (2, 16392)),
+    (torch.float32, (300, 8196)), (torch.float32, (2, 16384)),
+    (torch.bfloat16, (4, 6)),
+])
+def test_rmsnorm_kernel_variant_warp(dtype, shape):
+    assert rn.kernel_variant(dtype, *shape) == "warp"
+    assert set(rn.VARIANTS) == {"warp", "resident"}
+
+
+def test_rmsnorm_max_resident_d():
+    """2048 16-byte vectors: 16384 bf16 or f16 elements, 8192 float32."""
+    assert rn.max_resident_d(torch.bfloat16) == 16384
+    assert rn.max_resident_d(torch.float16) == 16384
+    assert rn.max_resident_d(torch.float32) == 8192
+
+
+def test_cpu_calls_launch_no_scatter_or_rmsnorm_variant():
+    """CPU tensors take the plain versions: no count moves."""
+    before = (sa.launches, dict(sa.launches_by_variant), rn.launches,
+              dict(rn.launches_by_variant))
+    vals = torch.randn(3, 40)
+    idx = torch.randint(-1, sa.TILE + 2, (3, 40))
+    out = sa.scatter_add(vals, idx, torch.rand(3), sa.TILE + 1)
+    assert out.shape == (sa.TILE + 1,)
+    x = torch.randn(5, 6144, dtype=torch.bfloat16)
+    assert rn.rmsnorm(x, torch.ones(6144)).shape == x.shape
+    assert (sa.launches, sa.launches_by_variant, rn.launches,
+            rn.launches_by_variant) == before
+    assert set(sa.launches_by_variant) == set(sa.VARIANTS)
+    assert set(rn.launches_by_variant) == set(rn.VARIANTS)

@@ -98,9 +98,12 @@ from repro_torch.kernels import scatter_add as sa  # noqa: E402
 
 def check_scatter(vals, idx, w, size):
     before = sa.launches
+    variant = sa.kernel_variant(*vals.shape, size)
+    before_v = sa.launches_by_variant[variant]
     got = sa.scatter_add(vals, idx, w, size)
     torch.cuda.synchronize()
     assert sa.launches == before + (vals.numel() > 0)
+    assert sa.launches_by_variant[variant] == before_v + (vals.numel() > 0)
     exp = sa.scatter_add_ref(vals, idx, w, size)
     np.testing.assert_allclose(got.cpu().numpy(), exp.cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
@@ -161,6 +164,103 @@ def test_fedavg_compressed_cuda_matches_ref(cuda):
                                        rtol=1e-5, atol=1e-5)
             np.testing.assert_allclose(lf[key].cpu(), lp[key].cpu(),
                                        rtol=1e-5, atol=1e-5)
+
+
+# Each variant of the scatter-add on the edges its tiles create: T is the
+# tile size in floats.
+T = sa.TILE
+SCATTER_CASES = {
+    # name: (n, k, size)
+    "padding-and-past-the-end": (6, 700, 3 * T + 5),
+    "repeats-in-row": (4, 2000, T + 100),
+    "one-position": (8, 1000, 2 * T),
+    "size-1": (5, 30, 1),
+    "size-T": (4, 500, T),
+    "size-T-minus-1": (4, 500, T - 1),
+    "size-T-plus-1": (4, 500, T + 1),
+    "tiles-with-no-entry": (3, 1000, 6 * T),
+    "long-stream": (10, 20_000, 5 * T + 3),
+    "one-tile-one-entry-a-thread": (2, 512, T),
+    "output-past-the-l2": (10, 3000, 2 ** 23 + 1),
+}
+
+
+def scatter_case(cuda, name, dtype):
+    n, k, size = SCATTER_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(n * k + size)
+    vals = torch.randn((n, k), device=cuda, generator=g)
+    w = torch.rand(n, device=cuda, generator=g) + 0.1
+    idx = torch.randint(0, size, (n, k), device=cuda, generator=g)
+    if name == "padding-and-past-the-end":
+        idx = torch.randint(-3, size + 3, (n, k), device=cuda, generator=g)
+        idx[:, 5::50] = 2 ** 40 if dtype == torch.int64 else 2 ** 31 - 1
+    elif name == "repeats-in-row":
+        idx[:, 1::2] = idx[:, ::2]
+    elif name == "one-position":
+        idx.fill_(T + 3)
+    elif name == "size-1":
+        idx[:, ::3] = -1
+    elif name == "size-T-plus-1":
+        idx[:, :2] = T                       # the second tile's one float
+    elif name == "tiles-with-no-entry":
+        idx = idx % T
+        idx[:, 1::2] += 4 * T                # tiles 0 and 4 only
+    return vals, idx.to(dtype).contiguous(), w, size
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("name", list(SCATTER_CASES))
+@pytest.mark.parametrize("variant", sa.VARIANTS)
+def test_scatter_add_variant_matches_plain(cuda, variant, name, dtype):
+    """Every variant against the plain version within 1e-5 relative plus
+    absolute; the entry refuses a shape the variant does not serve (tile:
+    an output past one tile)."""
+    vals, idx, w, size = scatter_case(cuda, name, dtype)
+    if not sa.serves(variant, *vals.shape, size):
+        with pytest.raises(RuntimeError, match="CUDA error 1 "):
+            sa.launch_variant(variant, vals, idx, w, size)
+        return
+    got = sa.launch_variant(variant, vals, idx, w, size)
+    torch.cuda.synchronize()
+    exp = sa.scatter_add_ref(vals, idx, w, size)
+    np.testing.assert_allclose(got.cpu().numpy(), exp.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", list(SCATTER_CASES))
+def test_scatter_add_picks_its_variant(cuda, name):
+    """Through ``scatter_add``: the variant ``kernel_variant`` names is the
+    one that launches, and the result holds."""
+    check_scatter(*scatter_case(cuda, name, torch.int64))
+
+
+@pytest.mark.parametrize("size", [1, T, T + 1, 100 * T])
+def test_scatter_add_empty_stream_launches_nothing(cuda, size):
+    before = (sa.launches, dict(sa.launches_by_variant))
+    for n, k in ((0, 7), (4, 0)):
+        out = sa.scatter_add(torch.zeros((n, k), device=cuda),
+                             torch.zeros((n, k), dtype=torch.int64,
+                                         device=cuda),
+                             torch.ones(n, device=cuda), size)
+        assert out.shape == (size,) and not bool(out.any())
+    assert (sa.launches, sa.launches_by_variant) == before
+
+
+def test_scatter_add_entry_refuses_what_a_variant_cannot_serve(cuda):
+    vals = torch.ones((1, 4), device=cuda)
+    idx = torch.zeros((1, 4), dtype=torch.int64, device=cuda)
+    w = torch.ones(1, device=cuda)
+    out = torch.empty(8, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = sa._entry()
+    for variant, size in (("tile", T + 1),                 # past one tile
+                          ("nonesuch", 8)):
+        code = (sa.VARIANTS.index(variant) if variant in sa.VARIANTS
+                else len(sa.VARIANTS))
+        assert not (variant in sa.VARIANTS and sa.serves(variant, 1, 4, size))
+        rc = fn(vals.data_ptr(), idx.data_ptr(), 8, w.data_ptr(),
+                out.data_ptr(), code, 1, 4, size, stream)
+        assert rc == CUDA_ERROR_INVALID_VALUE, variant
 
 
 # ---- flash and decode attention (kernels/csrc/{flash,decode}_attention.cu) ----
@@ -455,13 +555,53 @@ def test_rmsnorm_matches_plain(cuda, dtype, shape):
     x = (2 * torch.randn(shape, device=cuda, generator=g)).to(dtype)
     s = 1 + 0.1 * torch.randn(shape[-1:], device=cuda, generator=g)
     before = rn.launches
+    variant = rn.kernel_variant(dtype, x.numel() // shape[-1], shape[-1])
+    before_v = rn.launches_by_variant[variant]
     got = rn.rmsnorm(x, s)
     torch.cuda.synchronize()
     assert rn.launches == before + 1 and got.dtype == dtype
+    assert rn.launches_by_variant[variant] == before_v + 1
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     np.testing.assert_allclose(got.float().cpu(),
                                rn.rmsnorm_ref(x, s).float().cpu(), atol=tol,
                                rtol=tol)
+
+
+NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows,d", [
+    (1, 6144), (7, 1600), (131, 2048), (301, 6144), (4097, 1600),
+    (5, 100), (300, "limit"), (16, "limit"), (300, "past"), (3, "past")])
+@pytest.mark.parametrize("variant", rn.VARIANTS)
+def test_rmsnorm_variant_matches_plain(cuda, variant, dtype, rows, d):
+    """Each variant against the plain version (1e-5 in float32, 2e-2 in
+    bf16 and f16); bf16 and f16 rows also within 1e-2 of their norm of the
+    plain version run in float32. The resident variant's entry refuses a
+    row it cannot hold (no 16-byte vectors, or past its widest row)."""
+    limit = rn.max_resident_d(dtype)
+    d = {"limit": limit, "past": limit + rn.vector_width(dtype)}.get(d, d)
+    g = torch.Generator(device=cuda).manual_seed(rows * 7 + d)
+    x = (2 * torch.randn((rows, d), device=cuda, generator=g)).to(dtype)
+    s = 1 + 0.1 * torch.randn(d, device=cuda, generator=g)
+    out = torch.empty_like(x)
+    if variant == "resident" and rn.kernel_variant(dtype, rows, d) == "warp":
+        with pytest.raises(RuntimeError, match="CUDA error 1 "):
+            rn.launch_variant(variant, x, s, out)
+        return
+    rn.launch_variant(variant, x, s, out)
+    torch.cuda.synchronize()
+    tol = NORM_TOL[dtype]
+    np.testing.assert_allclose(out.float().cpu(),
+                               rn.rmsnorm_ref(x, s).float().cpu(), atol=tol,
+                               rtol=tol)
+    if dtype != torch.float32:
+        exact = rn.rmsnorm_ref(x.float(), s)
+        row_err = ((out.float() - exact).norm(dim=-1)
+                   / exact.norm(dim=-1).clamp(min=1e-30))
+        assert float(row_err.max()) <= 1e-2
 
 
 @pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b",
