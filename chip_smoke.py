@@ -11,16 +11,26 @@ non-zero with a traceback, and no phase's failure is caught.
    kernel build, from the checkout's sources, one ``nvcc`` per source, with
    each library's build seconds and, per compiled function, the registers,
    spills and performance warnings ``ptxas`` reports.
-2. kernels — each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it and at ragged and edge-case shapes;
-   columns 0 and 1 of ``plan_stats`` exact, column 2 within
-   ``1e-5 * max(1, sum |w| over the selected devices)``. Times (CUDA
-   events, warm-up then the median) of the kernel, the plain version and
-   the host-to-device copy of the plans, beside the bound.
+2. kernels — the plan-scoring kernel (2.1) against its plain PyTorch
+   version on the card, at the shapes the main path gives it and at ragged
+   and edge-case shapes: every variant that serves a shape
+   (``sched_score.serves``), columns 0 and 1 exact, column 2 within
+   ``1e-5 * max(1, sum |w| over the selected devices)``. Each row names the
+   variant ``kernel_variant`` picked (its count must advance). Times (CUDA
+   events, warm-up then the median, L2-warm) of
+   the kernel, of the first design (``row``), of the plain version and of
+   the host-to-device copy of the plans, beside the bound and the time of
+   an empty kernel under the same timer (``torch.cuda._sleep(0)``). At the
+   main path's (512, 10,000) also a cold row: launches rotate over 12
+   copies of the plans (61 MB, more than the 50 MB L2), every variant is
+   held to the plain version on rotated copies, and one launch at a time
+   is timed on warm plans, on cold ones and right after a fresh
+   host-to-device copy (as the main path launches it).
 3. main    — the ``fleet-scale`` preset (K = 10,000, n_sel = 100, 2 jobs x 5
    rounds) with the genetic host search (population 512, 12 generations)
    and ``scoring_backend="cuda"``, through ``ExperimentSpec.build/run`` on
-   the card: the kernel must launch 13 times per decision; the same spec on
+   the card: the kernel must launch 13 times per decision (the launches
+   by variant are printed); the same spec on
    the ``torch`` backend must give identical device ids and round times
    and est_cost within 1e-5. Greedy on the same preset covers the index
    form on the card and must match the numpy backend's records.
@@ -245,9 +255,37 @@ def check_stats(torch, got, exp, weights, plans) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
+def single_launch_ms(torch, prep, fn, reps: int = 21) -> float:
+    """Median device time of one launch of ``fn(prep(r))``, by CUDA events
+    around that launch alone, ``prep`` run first (outside the events) and a
+    short sleep kernel queued before the start event to hide the host."""
+    samples = []
+    for r in range(reps + 2):
+        x = prep(r)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES // 50)
+        start.record()
+        fn(x)
+        end.record()
+        end.synchronize()
+        if r >= 2:
+            samples.append(start.elapsed_time(end))
+    return statistics.median(samples)
+
+
+COLD_COPIES = 12    # 12 x 5.12 MB of plans at (512, 10,000): more than the L2
+
+
 def phase_kernels(torch, dev) -> dict:
+    """Kernel 2.1: every variant that serves each shape against the plain
+    version, the picked variant's time beside the first design's (``row``),
+    the plain version, the plans' host-to-device copy, the bound and the
+    time of an empty kernel under the same timer; at the main path's shape
+    also with the plans cold in the L2 and right after a fresh copy."""
     from repro_torch.core import scoring
-    from repro_torch.kernels import sched_score
+    from repro_torch.kernels import sched_score as ss
 
     shapes = [
         # (label, P, K, density, edges)
@@ -257,21 +295,37 @@ def phase_kernels(torch, dev) -> dict:
         ("ragged", 37, 1001, 0.10, True),
         ("edges-aligned", 64, 10_000, 0.01, True),
     ]
+    floor_ms = cuda_time_ms(torch, lambda: torch.cuda._sleep(0), inner=50)
     rows = []
     for i, (label, P, K, density, edges) in enumerate(shapes):
         times, weights, plans = make_inputs(torch, dev, P, K, density,
                                             seed=1000 + i, edges=edges)
-        got = sched_score.plan_stats(times, weights, plans)
-        exp = sched_score.plan_stats_ref(times, weights, plans)
+        aligned = plans.data_ptr() % 16 == 0
+        variant = ss.kernel_variant(P, K, aligned)
+        before = ss.launches_by_variant[variant]
+        got = ss.plan_stats(times, weights, plans)
+        if ss.launches_by_variant[variant] != before + 1:
+            raise AssertionError(f"{label}: {variant} did not launch")
+        exp = ss.plan_stats_ref(times, weights, plans)
         torch.cuda.synchronize()
         err = check_stats(torch, got, exp, weights, plans)
+        checked = []
+        for v in ss.VARIANTS:  # every design that serves the shape
+            if ss.serves(v, P, K, aligned):
+                other = ss.launch_variant(v, times, weights, plans)
+                torch.cuda.synchronize()
+                err = max(err, check_stats(torch, other, exp, weights, plans))
+                checked.append(v)
         host_plans = (plans.cpu().numpy() != 0)  # numpy bool, as searchers hold
         big = P * K >= 10 ** 8
         kernel_ms = cuda_time_ms(
-            torch, lambda: sched_score.plan_stats(times, weights, plans),
+            torch, lambda: ss.plan_stats(times, weights, plans),
+            inner=5 if big else 50)
+        row_ms = cuda_time_ms(
+            torch, lambda: ss.launch_variant("row", times, weights, plans),
             inner=5 if big else 50)
         plain_ms = cuda_time_ms(
-            torch, lambda: sched_score.plan_stats_ref(times, weights, plans),
+            torch, lambda: ss.plan_stats_ref(times, weights, plans),
             inner=2 if big else 20)
         # A copy from pageable host memory blocks the host: nothing to hide.
         h2d_ms = cuda_time_ms(
@@ -280,16 +334,82 @@ def phase_kernels(torch, dev) -> dict:
         nbytes = P * K + 8 * K + 12 * P
         ops = 3 * P * K
         bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-        rows.append(dict(
-            label=label, shape=[P, K], max_abs_err=err,
-            kernel_ms=kernel_ms, plain_ms=plain_ms, h2d_ms=h2d_ms,
-            bound_ms=bound_ms,
-            bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                      >= ops / F32_OPS_PER_S else "operations"),
-            selected=int((plans != 0).sum())))
+        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+                    else "operations")
+        row = dict(
+            label=label, shape=[P, K], variant=variant,
+            variants_checked=checked, max_abs_err=err,
+            kernel_ms=kernel_ms, other_variant="row", other_ms=row_ms,
+            floor_ms=floor_ms, plain_ms=plain_ms, h2d_ms=h2d_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
+            selected=int((plans != 0).sum()))
+        rows.append(row)
+        if label == "genetic-fleet-scale":
+            rows.append(cold_row(torch, dev, ss, scoring, row, times, weights,
+                                 plans, host_plans, exp))
         del times, weights, plans, got, exp, host_plans
         torch.cuda.empty_cache()
-    return {"plan_stats": rows}
+    return {"plan_stats": rows, "floor_ms": floor_ms}
+
+
+def cold_row(torch, dev, ss, scoring, warm, times, weights, plans,
+             host_plans, exp) -> dict:
+    """The main path's shape with the plans cold in the L2: launches
+    rotate over ``COLD_COPIES`` copies, so each finds its plans evicted by
+    the 11 launches before it; every variant that serves the shape is held
+    to the plain version's ``exp`` on a copy evicted so. Also one launch at
+    a time, by events around it alone: on the same plans again (warm), on
+    the rotated copies (cold) and on a fresh host-to-device copy of the
+    plans (as the main path launches), to show which of the two the main
+    path resembles. Only what is measured here is in the row; the bound
+    and the floor are the warm row's (the same inputs, the same timer)."""
+    copies = [plans.clone() for _ in range(COLD_COPIES)]
+    turn = iter(range(10 ** 9))
+    P, K = plans.shape
+    aligned = copies[0].data_ptr() % 16 == 0
+    err, checked = 0.0, []
+    for i, v in enumerate(ss.VARIANTS):
+        if ss.serves(v, P, K, aligned):
+            for c in copies[i + 1:]:  # evict copies[i] from the L2
+                ss.launch_variant(v, times, weights, c)
+            got = ss.launch_variant(v, times, weights, copies[i])
+            torch.cuda.synchronize()
+            err = max(err, check_stats(torch, got, exp, weights, copies[i]))
+            checked.append(v)
+
+    def rotated(fn):
+        return lambda: fn(copies[next(turn) % COLD_COPIES])
+
+    kernel_ms = cuda_time_ms(
+        torch, rotated(lambda p: ss.plan_stats(times, weights, p)),
+        inner=4 * COLD_COPIES)
+    row_ms = cuda_time_ms(
+        torch, rotated(lambda p: ss.launch_variant("row", times, weights, p)),
+        inner=4 * COLD_COPIES)
+    plain_ms = cuda_time_ms(
+        torch, rotated(lambda p: ss.plan_stats_ref(times, weights, p)),
+        inner=2 * COLD_COPIES)
+
+    def launch(p):
+        return ss.plan_stats(times, weights, p)
+
+    single_warm = single_launch_ms(torch, lambda r: plans, launch)
+    single_cold = single_launch_ms(
+        torch, lambda r: copies[r % COLD_COPIES], launch)
+    after_copy = single_launch_ms(
+        torch, lambda r: scoring.h2d(host_plans.view("int8"), dev), launch)
+    del copies
+    return dict(
+        label="genetic-fleet-scale cold", shape=warm["shape"],
+        variant=warm["variant"], variants_checked=checked, max_abs_err=err,
+        kernel_ms=kernel_ms, other_variant="row", other_ms=row_ms,
+        floor_ms=warm["floor_ms"], plain_ms=plain_ms,
+        bound_ms=warm["bound_ms"], bound_by=warm["bound_by"],
+        selected=warm["selected"], copies=COLD_COPIES,
+        single_launch_ms=dict(warm=single_warm, cold=single_cold,
+                              after_copy=after_copy),
+        after_copy_resembles=("warm" if abs(after_copy - single_warm)
+                              <= abs(after_copy - single_cold) else "cold"))
 
 
 # ---- phase 3 -------------------------------------------------------------
@@ -401,14 +521,20 @@ def phase_main(torch) -> dict:
     sched.schedule = counted
     with ScoringClock(torch, scoring) as clock:
         sched_score.launches = 0
+        sched_score.launches_by_variant.update(
+            dict.fromkeys(sched_score.VARIANTS, 0))
         t0 = time.perf_counter()
         result = exp.run()
         wall_s = time.perf_counter() - t0
         launches = sched_score.launches
+        by_variant = dict(sched_score.launches_by_variant)
     expected = (sched.generations + 1) * decisions
     if decisions == 0 or launches != expected:
         raise AssertionError(f"plan_stats launched {launches} times for "
                              f"{decisions} decisions, expected {expected}")
+    if sum(by_variant.values()) != launches:
+        raise AssertionError(f"launches by variant {by_variant} do not add "
+                             f"up to {launches}")
     check_records(result.records, n_sel, K)
 
     t0 = time.perf_counter()
@@ -425,6 +551,7 @@ def phase_main(torch) -> dict:
         K=K, n_sel=n_sel, population=sched.population,
         generations=sched.generations, rounds=len(result.records),
         decisions=decisions, launches=launches,
+        launches_by_variant=by_variant,
         launches_per_decision=launches / decisions,
         wall_s=wall_s, torch_backend_wall_s=torch_wall_s,
         scoring_s=clock.score_s, copy_s=clock.copy_s,
@@ -2201,6 +2328,7 @@ def main(argv=None) -> int:
     emit(device)
 
     kern = phase_kernels(torch, dev)
+    emit(dict(phase="kernels-2.1", **kern))
     main_path = phase_main(torch)
     emit(dict(phase="main", **main_path))
     fl_kern = phase_fl_kernels(torch, dev)
@@ -2227,7 +2355,9 @@ def main(argv=None) -> int:
         max_abs_err=max(r["max_abs_err"] for r in kern["plan_stats"]),
         ms=at["kernel_ms"], plain_ms=at["plain_ms"], h2d_ms=at["h2d_ms"],
         bound_ms=at["bound_ms"], bound_by=at["bound_by"], library_ms=None,
-        shapes=kern["plan_stats"]), dict(
+        launches_by_variant=main_path["launches_by_variant"],
+        floor_ms=kern["floor_ms"], shapes=kern["plan_stats"],
+        **variant_keys(at)), dict(
         name="scatter_add", route="cuda",
         source="src/repro_torch/kernels/csrc/scatter_add.cu",
         replaces="src/repro/kernels/scatter_add.py:35",

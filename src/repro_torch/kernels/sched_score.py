@@ -11,9 +11,17 @@ statistics:
 
 from which ``repro_torch.core.scoring`` combines the cost on the host in
 float64. ``plan_stats`` launches ``csrc/sched_score.cu`` for CUDA tensors
-and counts each launch in ``launches``; for CPU tensors it is
+and counts each launch in ``launches`` and, by the variant
+``kernel_variant`` names, in ``launches_by_variant``; for CPU tensors it is
 ``plan_stats_ref``, the plain PyTorch version. There is no fallback: a CUDA
-tensor launches the kernel or raises.
+tensor launches the named variant or raises.
+
+Two variants, named by ``kernel_variant(P, K, aligned)`` from the shape
+and the plans pointer's alignment: ``stream`` (all of a 12 KB chunk's plan
+bytes in flight before the first test, the next chunk's during it, a
+persistent grid, gathers in batches) for K a multiple of 16 on 16-byte
+aligned plans; ``row`` (one block a row, the first design) for every other
+shape.
 """
 
 from __future__ import annotations
@@ -27,6 +35,28 @@ NEG_INF = -1e30
 #: Kernel launches since the last reset (one per ``plan_stats`` call that
 #: launched; the plain version and empty batches do not count).
 launches = 0
+
+#: The kernel's variants, by the number the C entry takes.
+VARIANTS = ("row", "stream")
+#: The same launches split by variant.
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+def serves(variant: str, P: int, K: int, aligned: bool) -> bool:
+    """Whether the C entry takes ``variant`` for (P, K) plans whose pointer
+    is 16-byte aligned (``aligned``): ``row`` every shape, ``stream``
+    K > 0 a multiple of 16 on aligned plans (every row then starts on a
+    16-byte boundary). P does not enter: both serve any row count."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+    return variant == "row" or (bool(aligned) and K > 0 and K % 16 == 0)
+
+
+def kernel_variant(P: int, K: int, aligned: bool) -> str:
+    """The variant of ``csrc/sched_score.cu`` that serves (P, K) plans:
+    ``"stream"`` wherever it serves the shape, ``"row"`` otherwise (K not a
+    multiple of 16, K = 0 or 1, an unaligned plans pointer)."""
+    return "stream" if serves("stream", P, K, aligned) else "row"
 
 
 def plan_stats_ref(times: torch.Tensor, weights: torch.Tensor,
@@ -99,16 +129,30 @@ def plan_stats(times: torch.Tensor, weights: torch.Tensor,
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     P, K = plans.shape
-    out = torch.empty((P, 3), dtype=torch.float32, device=plans.device)
     if P == 0:
-        return out
-    fn = _entry()
-    vec = int(K % 16 == 0 and plans.data_ptr() % 16 == 0)
-    stream = torch.cuda.current_stream(plans.device).cuda_stream
-    rc = fn(times.data_ptr(), weights.data_ptr(), plans.data_ptr(),
-            out.data_ptr(), P, K, vec, stream)
-    if rc != 0:
-        raise RuntimeError(f"sched_score kernel launch failed: CUDA error "
-                           f"{rc} at (P, K) = ({P}, {K})")
+        return torch.empty((0, 3), dtype=torch.float32, device=plans.device)
+    variant = kernel_variant(P, K, plans.data_ptr() % 16 == 0)
+    if variant == "stream":  # it reads dense vectors' times 16 bytes at a time
+        times, weights = (x if x.data_ptr() % 16 == 0 else x.clone()
+                          for x in (times, weights))
+    out = launch_variant(variant, times, weights, plans)
     launches += 1
+    launches_by_variant[variant] += 1
+    return out
+
+
+def launch_variant(variant: str, times: torch.Tensor, weights: torch.Tensor,
+                   plans: torch.Tensor) -> torch.Tensor:
+    """One launch of ``variant`` through the C entry on checked,
+    contiguous CUDA inputs (``plans`` int8, P > 0; for ``stream`` times and
+    weights 16-byte aligned, as ``plan_stats`` makes them); returns the
+    (P, 3) stats. Counts nothing (``plan_stats`` does)."""
+    P, K = plans.shape
+    out = torch.empty((P, 3), dtype=torch.float32, device=plans.device)
+    rc = _entry()(times.data_ptr(), weights.data_ptr(), plans.data_ptr(),
+                  out.data_ptr(), P, K, VARIANTS.index(variant),
+                  torch.cuda.current_stream(plans.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sched_score kernel ({variant}) launch failed: "
+                           f"CUDA error {rc} at (P, K) = ({P}, {K})")
     return out

@@ -30,12 +30,27 @@ def cuda():
     return torch.device("cuda")
 
 
-def check(times, weights, plans):
+def check(times, weights, plans, variant=None):
+    """``plan_stats`` (or, given ``variant``, one ``launch_variant``, which
+    counts nothing) against the plain version: columns 0 and 1 exact,
+    column 2 within 1e-5 * max(1, sum |w| over the selected devices).
+    Returns the kernel's stats."""
     before = sched_score.launches
-    got = sched_score.plan_stats(times, weights, plans)
+    picked = sched_score.kernel_variant(*plans.shape,
+                                        plans.data_ptr() % 16 == 0)
+    before_v = dict(sched_score.launches_by_variant)
+    if variant is None:
+        got = sched_score.plan_stats(times, weights, plans)
+        launched = plans.shape[0] > 0
+    else:
+        got = sched_score.launch_variant(variant, times, weights, plans)
+        launched = False
     torch.cuda.synchronize()
-    assert sched_score.launches == before + (plans.shape[0] > 0)
+    assert sched_score.launches == before + launched
+    assert sched_score.launches_by_variant == {
+        v: n + (launched and v == picked) for v, n in before_v.items()}
     exp = sched_score.plan_stats_ref(times, weights, plans)
+    out = got
     got, exp = got.cpu().numpy(), exp.cpu().numpy()
     np.testing.assert_array_equal(got[:, 0], exp[:, 0])
     np.testing.assert_array_equal(got[:, 1], exp[:, 1])
@@ -43,6 +58,7 @@ def check(times, weights, plans):
     scale = np.maximum(1.0, np.where(sel, np.abs(weights.cpu().numpy()),
                                      0.0).sum(axis=1))
     assert np.all(np.abs(got[:, 2] - exp[:, 2]) <= 1e-5 * scale)
+    return out
 
 
 @pytest.mark.parametrize("P,K", [(1, 10_000), (512, 10_000), (37, 1001),
@@ -72,6 +88,101 @@ def test_unaligned_rows_and_views(cuda):
     odd = torch.zeros(16 * 7 + 1, dtype=torch.int8, device=cuda)[1:]
     odd[::5] = 1  # a 16-aligned K on a pointer that is not 16-aligned
     check(times[:112], torch.ones(112, device=cuda), odd.view(1, 112))
+
+
+def stats_problem(cuda, P, K, density, seed):
+    """Times with +inf on devices only the all-selected row picks, centred
+    count weights (as the cuda backend builds them), and plans of the
+    given density; for P > 2 row 0 selects nothing and row 1 everything."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    times = torch.rand(K, device=cuda, generator=g) * 100 + 0.1
+    counts = torch.randint(0, 6, (K,), device=cuda, generator=g).double()
+    weights = (2.0 * (counts - counts.mean()) + 1.0).float()
+    plans = torch.rand((P, K), device=cuda, generator=g) < density
+    inf_cols = torch.arange(3, K, 41, device=cuda)
+    times[inf_cols] = torch.inf
+    plans[:, inf_cols] = False
+    if P > 2:
+        plans[0] = False
+        plans[1] = True
+    return times, weights, plans.view(torch.int8)
+
+
+VARIANT_SHAPES = [  # P, K, density
+    (1, 10_000, 0.01), (64, 10_000, 0.025), (64, 10_000, 0.5),
+    (512, 10_000, 0.01), (37, 1001, 0.1), (8, 262_144, 0.01)]
+
+
+def serving(P, K, aligned=True):
+    return [v for v in sched_score.VARIANTS
+            if sched_score.serves(v, P, K, aligned)]
+
+
+@pytest.mark.parametrize("P,K,density", VARIANT_SHAPES)
+def test_every_variant_matches_plain(cuda, P, K, density):
+    times, weights, plans = stats_problem(cuda, P, K, density, P * 7 + K)
+    for variant in serving(P, K):
+        got = check(times, weights, plans, variant=variant).cpu()
+        assert torch.isfinite(got[2:, 0] if P > 2 else got[:, 0]).all()
+        if P > 2:
+            assert got[0].tolist() == [float(np.float32(sched_score.NEG_INF)),
+                                       0.0, 0.0]
+            assert got[1, 0] == torch.inf and got[1, 1] == K
+    check(times, weights, plans)  # the picked variant, counted
+
+
+@pytest.mark.parametrize("P,K", [(1500, 4096), (600, 16 * 769),
+                                 (529, 16 * 1536), (2, 16 * 2305)])
+def test_stream_walks_rows_and_chunks(cuda, P, K):
+    """``stream``'s persistent grid: more rows than resident blocks (each
+    block takes several), rows of one chunk and a vector more, of exactly
+    two chunks and of three chunks and a vector, so the next row's loads
+    are issued from a row's last chunk."""
+    times, weights, plans = stats_problem(cuda, P, K, 0.02, P + K)
+    check(times, weights, plans, variant="stream")
+
+
+@pytest.mark.parametrize("P,K,density", VARIANT_SHAPES)
+def test_weight_sum_bitwise_under_permuted_positions(cuda, P, K, density):
+    """Column 2 is the same float, bit for bit, when the devices (times,
+    weights and plan columns alike) are permuted, on every variant: the
+    sum is taken in double and rounded once."""
+    times, weights, plans = stats_problem(cuda, P, K, density, 5 * P + K)
+    g = torch.Generator(device=cuda).manual_seed(K)
+    perm = torch.randperm(K, device=cuda, generator=g)
+    for variant in serving(P, K):
+        a = sched_score.launch_variant(variant, times, weights, plans)
+        b = sched_score.launch_variant(variant, times[perm], weights[perm],
+                                       plans[:, perm].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), variant
+
+
+def test_entry_refuses_what_a_variant_cannot_serve(cuda):
+    times, weights, plans = stats_problem(cuda, 4, 1001, 0.1, 3)
+    assert not sched_score.serves("stream", 4, 1001, True)
+    with pytest.raises(RuntimeError):
+        sched_score.launch_variant("stream", times, weights, plans)
+    base = torch.zeros(16 * 9 + 1, dtype=torch.int8, device=cuda)
+    odd = base[1:].view(1, 144)  # K % 16 == 0 on an unaligned pointer
+    assert odd.data_ptr() % 16 and sched_score.kernel_variant(
+        1, 144, False) == "row"
+    with pytest.raises(RuntimeError):
+        sched_score.launch_variant("stream", times[:144], weights[:144], odd)
+    ok = torch.zeros((2, 32), dtype=torch.int8, device=cuda)
+    # stream reads times and weights 16 bytes at a time
+    with pytest.raises(RuntimeError):
+        sched_score.launch_variant("stream", times[1:33], weights[:32], ok)
+
+
+def test_unaligned_times_and_weights(cuda):
+    """``plan_stats`` copies times or weights that do not start on a
+    16-byte boundary before it launches ``stream``."""
+    times, weights, plans = stats_problem(cuda, 40, 4097, 0.3, 9)
+    plans = plans[:, 1:].contiguous()
+    assert sched_score.kernel_variant(40, 4096, True) == "stream"
+    check(times[1:], weights[1:], plans)
+    check(times[:4096], weights[1:], plans)
 
 
 def test_cuda_scoring_backend_matches_torch(cuda):
