@@ -132,6 +132,29 @@ non-zero with a traceback, and no phase's failure is caught.
    Every launch of these paths is the Hopper design (``HOPPER_VARIANT``:
    wgmma flash and ``moe_gmm``, tma decode, mma scan).
 
+10. schedulers — the paper's schedulers and the fused searches of
+   ``core/search.py`` on the card. (a) ``fleet-scale`` at its defaults
+   (fused BODS, K = 10,000, n_sel = 100, 512 candidates, 2 jobs x 5
+   rounds): kernel 2.1 launches once per fused BODS decision on the
+   device-resident (512, 10,000) candidate block, all ``stream``; the same
+   spec under ``ops.set_default_impl("ref")`` (the plain statistics) must
+   make identical decisions; wall and acquisition seconds per decision,
+   the host-device synchronisations PyTorch reports inside a decision, and
+   2.1 on the last block by CUDA events against its plain version and
+   bound. (b) ``fleet-scale`` with the fused GA and SA: every decision is
+   replayed on the CPU from the same inputs and generator state; GA's
+   must be identical, SA's differences (an ``exp`` rounded otherwise can
+   flip one Metropolis test) are counted with both plans' costs; seconds
+   per decision beside phase 3's host GA. (c) ``paper-group-a``,
+   ``paper-group-b`` and ``quickstart`` with their default BODS, and
+   ``quickstart`` with RLDS (its 300 pretraining rounds timed apart) and
+   DNN, all on the card: records checked, rounds to target, wall seconds.
+   Each BODS run is held as (a) holds fleet-scale: 2.1 once per decision,
+   all of the variant its (256, 100) block picks (``row``, K not a
+   multiple of 16), identical decisions under the plain version, and 2.1
+   on the last block against its plain version. The kernels line counts
+   (a)'s and (c)'s launches by path and by variant.
+
 The line before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
 them; the last line is ``{"ok": true, "device": {...}}``.
@@ -520,9 +543,7 @@ def phase_main(torch) -> dict:
 
     sched.schedule = counted
     with ScoringClock(torch, scoring) as clock:
-        sched_score.launches = 0
-        sched_score.launches_by_variant.update(
-            dict.fromkeys(sched_score.VARIANTS, 0))
+        reset_plan_stats_counts(sched_score)
         t0 = time.perf_counter()
         result = exp.run()
         wall_s = time.perf_counter() - t0
@@ -1309,6 +1330,8 @@ def kernel_class(name: str) -> str:
         return "linear_scan"
     if "rmsnorm_kernel" in name:
         return "rmsnorm"
+    if "plan_stats_" in name:
+        return "plan_stats"
     if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "nvjet",
                                        "gemv")):
         return "matmul"
@@ -2291,6 +2314,314 @@ def routed_agree(torch, got, exp, got_ids, exp_ids) -> dict:
                 tokens=int(alike.numel()))
 
 
+# ---- phase 10 ------------------------------------------------------------
+
+class SearchLog:
+    """For one run, wraps a search entry point of ``repro_torch.core.search``
+    (``bods_acquire``, ``ga_search`` or ``sa_search``): counts its calls,
+    sums the host seconds inside them (each returns a host plan, so each
+    ends synchronised), counts the host-device synchronisations PyTorch
+    reports inside them (``torch.cuda.set_sync_debug_mode("warn")``) and
+    keeps each decision's plan. With ``replay_device`` every call runs again
+    there on the same inputs, from a copy of the generator's state; both
+    plans are kept, and where they differ both plans' Formula-2 costs."""
+
+    def __init__(self, torch, search, name, replay_device=None):
+        self.torch, self.search, self.name = torch, search, name
+        self.replay_device = replay_device
+        self.calls, self.seconds, self.syncs = 0, 0.0, 0
+        self.replay_seconds = 0.0
+        self.plans, self.replays, self.differ = [], [], []
+        self.last = None
+        self._orig = getattr(search, name)
+
+    def _wrapper(self, rng, *args, **kw):
+        import copy
+        import warnings
+
+        import numpy as np
+
+        torch, fn = self.torch, self._orig
+        self.last = (args, kw)
+        state = copy.deepcopy(rng.bit_generator.state)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                out = fn(rng, *args, **kw)
+                self.seconds += time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        self.syncs += sum("synchroniz" in str(w.message) for w in caught)
+        self.calls += 1
+        plan = out[0] if isinstance(out, tuple) else out
+        self.plans.append(np.array(plan))
+        if self.replay_device is not None:
+            twin = np.random.Generator(type(rng.bit_generator)())
+            twin.bit_generator.state = state
+            t0 = time.perf_counter()
+            other = fn(twin, *args, **dict(kw, device=self.replay_device))
+            self.replay_seconds += time.perf_counter() - t0
+            self.replays.append(np.array(other))
+            if not np.array_equal(plan, other):
+                self.differ.append(self._costs(args, kw, plan, other))
+        return out
+
+    def _costs(self, args, kw, plan, other) -> dict:
+        import numpy as np
+
+        from repro_torch.core import scoring
+
+        times, counts = args[0], args[1]
+        c = scoring.score_plans(
+            times, counts, np.stack([plan, other]), backend="numpy",
+            **{k: kw[k] for k in ("alpha", "beta", "time_scale",
+                                  "fairness_scale", "delta_fairness")})
+        return dict(decision=self.calls - 1, cuda_cost=float(c[0]),
+                    cpu_cost=float(c[1]))
+
+    def __enter__(self):
+        setattr(self.search, self.name, self._wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.search, self.name, self._orig)
+        return False
+
+    def device_split(self, calls: int = 3) -> dict:
+        """The last decision's inputs, decided ``calls`` more times under
+        torch.profiler (``device_split``): the device's busy time and idle
+        share inside a decision, device ms by kernel class."""
+        import numpy as np
+
+        args, kw = self.last
+        return device_split(self.torch, lambda: self._orig(
+            np.random.default_rng(0), *args, **kw), calls)
+
+    def per_decision(self) -> dict:
+        n = max(self.calls, 1)
+        return dict(decisions=self.calls, search_s_per_decision=self.seconds / n,
+                    syncs_per_decision=self.syncs / n)
+
+
+def reset_plan_stats_counts(ss) -> None:
+    ss.launches = 0
+    ss.launches_by_variant.update(dict.fromkeys(ss.VARIANTS, 0))
+
+
+def bods_run(torch, spec, impl: str) -> dict:
+    """``spec`` (fused BODS) on the card under ``ops.set_default_impl(impl)``:
+    the records, the acquisition's log, the wall seconds, 2.1's launches by
+    variant, and the last candidate block's inputs to the statistics
+    (times, centred counts, plans)."""
+    from repro_torch.core import search
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sched_score as ss
+
+    block = {}
+    dense_stats = search._dense_stats
+
+    def keep_block(times, counts_c, plans):
+        block.update(times=times, counts_c=counts_c, plans=plans)
+        return dense_stats(times, counts_c, plans)
+
+    exp = spec.build(device="cuda")
+    ops.set_default_impl(impl)
+    search._dense_stats = keep_block
+    try:
+        with SearchLog(torch, search, "bods_acquire") as log:
+            reset_plan_stats_counts(ss)
+            t0 = time.perf_counter()
+            result = exp.run()
+            wall_s = time.perf_counter() - t0
+            launches = ss.launches
+            by_variant = dict(ss.launches_by_variant)
+    finally:
+        search._dense_stats = dense_stats
+        ops.set_default_impl("cuda")
+    return dict(records=result.records, log=log, wall_s=wall_s,
+                launches=launches, by_variant=by_variant, block=block,
+                result=result)
+
+
+def bods_checked(torch, spec, what: str) -> dict:
+    """``spec`` (fused BODS) run by ``bods_run`` with kernel 2.1 and again
+    under its plain version. Fails unless 2.1 launched once per decision,
+    every launch in the variant the last block picks, the records hold
+    n_sel distinct available devices, the plain run launched nothing and
+    made identical decisions, and 2.1 agrees with its plain version on the
+    last block (``block_kernel_row``)."""
+    from repro_torch.kernels import sched_score as ss
+
+    main = bods_run(torch, spec, "cuda")
+    log = main["log"]
+    if log.calls == 0 or main["launches"] != log.calls:
+        raise AssertionError(f"{what}: plan_stats launched {main['launches']} "
+                             f"times for {log.calls} fused BODS decisions")
+    kernel = block_kernel_row(torch, ss, main["block"])
+    if main["by_variant"].get(kernel["variant"]) != main["launches"]:
+        raise AssertionError(f"{what}: launches by variant "
+                             f"{main['by_variant']}: expected all "
+                             f"{kernel['variant']}")
+    check_records(main["records"], spec.effective_n_sel(),
+                  spec.effective_num_devices())
+    plain = bods_run(torch, spec, "ref")
+    if plain["launches"] != 0:
+        raise AssertionError(f"{what}: the plain run launched the kernel")
+    identical_decisions(log, plain["log"], f"{what}, kernel vs plain")
+    return dict(main=main, plain=plain, kernel=kernel,
+                est_diff=compare_runs(main["records"], plain["records"]))
+
+
+def block_kernel_row(torch, ss, block) -> dict:
+    """Kernel 2.1 on the main path's last candidate block: held to its
+    plain version (check_stats), timed by CUDA events beside the plain
+    version, with the bound of phase 2."""
+    times = block["times"].clone()
+    weights = 2.0 * block["counts_c"] + 1.0
+    plans = block["plans"].contiguous().view(torch.int8)
+    P, K = plans.shape
+    variant = ss.kernel_variant(P, K, plans.data_ptr() % 16 == 0)
+    exp = ss.plan_stats_ref(times, weights, plans)
+    got = ss.launch_variant(variant, times, weights, plans)
+    torch.cuda.synchronize()
+    err = check_stats(torch, got, exp, weights, plans)
+    kernel_ms = cuda_time_ms(
+        torch, lambda: ss.launch_variant(variant, times, weights, plans),
+        inner=50)
+    plain_ms = cuda_time_ms(
+        torch, lambda: ss.plan_stats_ref(times, weights, plans), inner=20)
+    nbytes = P * K + 8 * K + 12 * P
+    ops = 3 * P * K
+    return dict(shape=[P, K], variant=variant, max_abs_err=err,
+                kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                             ops / F32_OPS_PER_S) * 1e3,
+                bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                          >= ops / F32_OPS_PER_S else "operations"),
+                library_ms=None, selected=int((plans != 0).sum()))
+
+
+def identical_decisions(a: "SearchLog", b: "SearchLog", what: str) -> None:
+    import numpy as np
+
+    if a.calls != b.calls or not all(
+            np.array_equal(x, y) for x, y in zip(a.plans, b.plans)):
+        raise AssertionError(f"{what}: decisions differ")
+
+
+def phase_schedulers(torch, dev, host_ga_s_per_decision: float) -> dict:
+    """Phase 10: the paper's schedulers and the fused searches on the card
+    (see the module docstring)."""
+    from repro_torch.core import search
+    from repro_torch.experiment.presets import get_preset
+    from repro_torch.kernels import sched_score as ss
+
+    # warm-up (cuBLAS/cuSOLVER handles, first-use costs), not counted
+    get_preset("quickstart", max_rounds=1).run(device="cuda")
+
+    # (a) fleet-scale at its defaults: fused BODS, 2.1 on the block
+    spec = get_preset("fleet-scale")
+    if (spec.scheduler, spec.effective_search_backend()) != ("bods", "fused"):
+        raise AssertionError("fleet-scale no longer defaults to fused bods")
+    K, n_sel = spec.effective_num_devices(), spec.effective_n_sel()
+    run = bods_checked(torch, spec, "fleet-scale fused BODS")
+    main, plain, kernel = run["main"], run["plain"], run["kernel"]
+    log = main["log"]
+    if kernel["variant"] != "stream":
+        raise AssertionError(f"fleet-scale's block picked {kernel['variant']}"
+                             ", expected stream")
+    fleet = dict(
+        preset="fleet-scale", scheduler="bods", search_backend="fused",
+        K=K, n_sel=n_sel, candidates=spec.fleet.candidates,
+        rounds=len(main["records"]), launches=main["launches"],
+        launches_by_variant=main["by_variant"],
+        launches_per_decision=main["launches"] / log.calls,
+        wall_s=main["wall_s"], wall_s_per_decision=main["wall_s"] / log.calls,
+        plain_wall_s=plain["wall_s"],
+        plain_search_s_per_decision=(plain["log"].seconds
+                                     / plain["log"].calls),
+        decisions_identical_to_plain=True,
+        kernel_vs_plain_max_est_cost_diff=run["est_diff"],
+        **log.per_decision(), kernel=kernel, split=log.device_split())
+
+    # (b) fleet-scale with the fused GA and SA, each decision replayed on
+    # the CPU from the same inputs and generator state
+    searches = []
+    for sched, name in (("genetic", "ga_search"), ("sa", "sa_search")):
+        spec = get_preset("fleet-scale", scheduler=sched)
+        exp = spec.build(device="cuda")
+        with SearchLog(torch, search, name, replay_device="cpu") as slog:
+            t0 = time.perf_counter()
+            result = exp.run()
+            wall_s = time.perf_counter() - t0
+        check_records(result.records, n_sel, K)
+        if sched == "genetic" and slog.differ:
+            raise AssertionError(f"fused GA: {len(slog.differ)} decisions "
+                                 "differ from the CPU's")
+        searches.append(dict(
+            scheduler=sched, rounds=len(result.records),
+            wall_s=wall_s - slog.replay_seconds, **slog.per_decision(),
+            cpu_s_per_decision=slog.replay_seconds / slog.calls,
+            host_ga_s_per_decision=host_ga_s_per_decision,
+            decisions_differing_from_cpu=len(slog.differ),
+            differing=slog.differ, split=slog.device_split()))
+
+    # (c) the paper's scheduler plane on the card; each BODS run is held
+    # to the plain version as (a) is
+    plane = []
+    for preset, sched in (("paper-group-a", "bods"), ("paper-group-b", "bods"),
+                          ("quickstart", "bods"), ("quickstart", "rlds"),
+                          ("quickstart", "dnn")):
+        spec = get_preset(preset, scheduler=sched)
+        pretrain, bods = {"s": 0.0}, {}
+        if sched == "bods":
+            run = bods_checked(torch, spec, f"{preset} fused BODS")
+            result, wall_s = run["main"]["result"], run["main"]["wall_s"]
+            launches = run["main"]["launches"]
+            bods = dict(launches_by_variant=run["main"]["by_variant"],
+                        decisions_identical_to_plain=True,
+                        kernel_vs_plain_max_est_cost_diff=run["est_diff"],
+                        plain_wall_s=run["plain"]["wall_s"],
+                        kernel=run["kernel"], **run["main"]["log"].per_decision())
+        else:
+            exp = spec.build(device="cuda")
+            s = exp.engine.scheduler
+            if sched == "rlds":
+                pretrain_fn = s._pretrain
+
+                def timed_pretrain(*a, _fn=pretrain_fn):
+                    t0 = time.perf_counter()
+                    _fn(*a)
+                    torch.cuda.synchronize()
+                    pretrain["s"] = time.perf_counter() - t0
+
+                s._pretrain = timed_pretrain
+            reset_plan_stats_counts(ss)
+            t0 = time.perf_counter()
+            result = exp.run()
+            wall_s = time.perf_counter() - t0
+            launches = ss.launches
+            check_records(result.records, spec.effective_n_sel(),
+                          spec.effective_num_devices())
+            if launches != 0:
+                raise AssertionError(f"{preset}/{sched}: {launches} plan_stats "
+                                     "launches without a fused BODS decision")
+        summary = result.summary
+        plane.append(dict(
+            preset=preset, scheduler=sched, rounds=len(result.records),
+            wall_s=wall_s, pretrain_s=pretrain["s"],
+            wall_s_without_pretrain=wall_s - pretrain["s"],
+            rounds_to_target={j: (v["rounds"] if v["time_to_target"]
+                                  is not None else None)
+                              for j, v in summary.items()},
+            time_to_target={j: v["time_to_target"]
+                            for j, v in summary.items()},
+            plan_stats_launches=launches, **bods))
+    return dict(fleet_bods=fleet, fleet_searches=searches, paper=plane)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's details here")
@@ -2343,19 +2674,36 @@ def main(argv=None) -> int:
     emit(dict(phase="lm-kernels-2", **lm_kern2))
     lm_serve2 = phase_lm_serve_2(torch, dev)
     emit(dict(phase="lm-serve-2", **lm_serve2))
+    scheds = phase_schedulers(torch, dev,
+                              main_path["wall_s"] / main_path["decisions"])
+    emit(dict(phase="schedulers", **scheds))
     at = next(r for r in kern["plan_stats"]
               if r["label"] == "genetic-fleet-scale")
     fc = next(r for r in fl_kern["scatter_add"]
               if r["label"] == "vgg16-fc r=0.01")
+    bods_fleet = scheds["fleet_bods"]
+    paper_bods = [r for r in scheds["paper"] if r["scheduler"] == "bods"]
+    by_path = {"main (host genetic)": main_path["launches"],
+               "schedulers fleet-scale (fused bods)": bods_fleet["launches"],
+               **{f"schedulers {r['preset']} (fused bods)":
+                  r["plan_stats_launches"] for r in paper_bods}}
     kernels = [dict(
         name="plan_stats", route="cuda",
         source="src/repro_torch/kernels/csrc/sched_score.cu",
         replaces="src/repro/kernels/sched_score.py:39",
-        launches=main_path["launches"],
-        max_abs_err=max(r["max_abs_err"] for r in kern["plan_stats"]),
+        launches=sum(by_path.values()), launches_by_path=by_path,
+        bods_block=bods_fleet["kernel"],
+        paper_bods_blocks={f"{r['preset']}/bods": r["kernel"]
+                           for r in paper_bods},
+        max_abs_err=max([r["max_abs_err"] for r in kern["plan_stats"]]
+                        + [r["kernel"]["max_abs_err"]
+                           for r in [bods_fleet] + paper_bods]),
         ms=at["kernel_ms"], plain_ms=at["plain_ms"], h2d_ms=at["h2d_ms"],
         bound_ms=at["bound_ms"], bound_by=at["bound_by"], library_ms=None,
-        launches_by_variant=main_path["launches_by_variant"],
+        launches_by_variant={
+            v: n + sum(r["launches_by_variant"].get(v, 0)
+                       for r in [bods_fleet] + paper_bods)
+            for v, n in main_path["launches_by_variant"].items()},
         floor_ms=kern["floor_ms"], shapes=kern["plan_stats"],
         **variant_keys(at)), dict(
         name="scatter_add", route="cuda",
@@ -2412,7 +2760,8 @@ def main(argv=None) -> int:
         Path(args.out).write_text(json.dumps(
             dict(device=device, kernels=kernels, main=main_path,
                  fl_main=fl_main, lm_kernels=lm_kern, lm_serve=lm_serve,
-                 lm_kernels_2=lm_kern2, lm_serve_2=lm_serve2), indent=1))
+                 lm_kernels_2=lm_kern2, lm_serve_2=lm_serve2,
+                 schedulers=scheds), indent=1))
     print(json.dumps({"kernels": [{k: v for k, v in kr.items()
                                    if k != "shapes"} for kr in kernels]}))
     print(smi)

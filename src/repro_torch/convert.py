@@ -14,9 +14,15 @@ reference's public methods give:
      "scheduler":     scheduler.snapshot()}
 
 The pool's generator draws every round's realized times, so its state is
-carried beside the arrays. The schedulers of this slice have no learned
-parameters (their snapshot is the generator state); BODS rings and RLDS
-params join in ROADMAP module 5.
+carried beside the arrays. A learning scheduler's snapshot carries its
+``state_dict`` beside the generator state; the port's ``load_state_dict``
+takes the reference's leaves (numpy or JAX arrays) as they are. The
+``*_state_from_reference`` / ``*_state_to_reference`` pairs map one
+scheduler's ``state_dict`` between the layouts explicitly: BODS's
+observation rings (numpy on both sides), RLDS's params, ``OptState(step,
+(m, v))``, baselines, ``adv_scale`` and ``pretrained`` flag, DNN's params
+and replay ring. To the reference every leaf is numpy; the optimizer state
+keeps the fields ``step`` and ``inner`` the reference reads.
 
 A ``real_fl`` run's models cross with ``cnn_params_from_reference`` (the
 reference's CNN params, a list of dicts of numpy arrays as
@@ -38,7 +44,8 @@ import numpy as np
 import torch
 
 from repro_torch.experiment.spec import Experiment, ExperimentSpec
-from repro_torch.tree import tree_map
+from repro_torch.optim.optimizers import OptState
+from repro_torch.tree import as_tensor, tree_map
 
 
 def cnn_params_from_reference(params: List[Dict[str, Any]],
@@ -91,6 +98,75 @@ def lm_params_to_reference(params: Dict[str, Any]) -> Dict[str, Any]:
     ``ml_dtypes.bfloat16`` arrays (the package JAX's bf16 arrays use),
     every other leaf as float32."""
     return tree_map(_lm_leaf_to_reference, params)
+
+
+def _host(leaf) -> np.ndarray:
+    """A tensor or array leaf as a numpy copy."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy().copy()
+    return np.array(leaf)
+
+
+def bods_state_from_reference(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The reference's BODS rings as the port's, or the port's as the
+    reference's: numpy on both sides, so a copy serves both ways."""
+    return {k: _host(v) for k, v in tree.items()}
+
+
+def _opt_from_reference(opt, device) -> OptState:
+    step, (m, v) = opt
+
+    def f32(a):
+        return as_tensor(a, device, torch.float32)
+
+    return OptState(as_tensor(step, device, torch.int32),
+                    (tree_map(f32, m), tree_map(f32, v)))
+
+
+def rlds_state_from_reference(tree: Dict[str, Any],
+                              device: str = "cuda") -> Dict[str, Any]:
+    """The reference's RLDS ``state_dict`` (params and the adamw
+    ``OptState`` as JAX or numpy arrays) as the port's: f32 tensors on
+    ``device``, the step an int32 tensor."""
+    return {
+        "params": tree_map(lambda a: as_tensor(a, device, torch.float32),
+                           dict(tree["params"])),
+        "opt": _opt_from_reference(tree["opt"], device),
+        "baselines": np.array(tree["baselines"], np.float64),
+        "adv_scale": np.array(tree["adv_scale"], np.float64),
+        "pretrained": np.array(tree["pretrained"], bool),
+    }
+
+
+def rlds_state_to_reference(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's RLDS ``state_dict`` with numpy leaves, the reference's
+    layout (its ``load_state_dict`` reads ``opt.step`` and ``opt.inner``)."""
+    step, (m, v) = tree["opt"]
+    return {
+        "params": tree_map(_host, dict(tree["params"])),
+        "opt": OptState(np.asarray(_host(step), np.int32),
+                        (tree_map(_host, m), tree_map(_host, v))),
+        "baselines": np.array(tree["baselines"], np.float64),
+        "adv_scale": np.array(tree["adv_scale"], np.float64),
+        "pretrained": np.array(tree["pretrained"], bool),
+    }
+
+
+def dnn_state_from_reference(tree: Dict[str, Any],
+                             device: str = "cuda") -> Dict[str, Any]:
+    """The reference's DNN ``state_dict``: the MLP params as f32 tensors on
+    ``device``, the replay ring numpy."""
+    out = {k: _host(v) for k, v in tree.items() if k != "params"}
+    out["params"] = tree_map(lambda a: as_tensor(a, device, torch.float32),
+                             dict(tree["params"]))
+    return out
+
+
+def dnn_state_to_reference(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's DNN ``state_dict`` with numpy leaves (the reference's)."""
+    out = {k: _host(v) for k, v in tree.items() if k != "params"}
+    out["params"] = tree_map(_host, dict(tree["params"]))
+    return out
 
 
 def load_engine_state(spec: Union[ExperimentSpec, dict],

@@ -64,9 +64,9 @@ class SchedulerBase(abc.ABC):
     name: str = "base"
 
     #: Which plan-search implementation ``schedule`` runs: ``"fused"`` (the
-    #: default) is the on-device search loop, not ported yet (ROADMAP
-    #: module 5: the searchers raise ``NotImplementedError`` on it);
-    #: ``"host"`` keeps the historical sequential numpy path. Schedulers
+    #: default) runs the search loops of ``repro_torch.core.search`` on the
+    #: cost model's device; ``"host"`` keeps the historical sequential
+    #: numpy path. Schedulers
     #: without a search loop (random/greedy/FedCS/DNN/RLDS) accept and
     #: ignore the knob — their one code path serves both settings.
     SEARCH_BACKENDS = ("host", "fused")
@@ -167,11 +167,3 @@ class SchedulerBase(abc.ABC):
             ctx.expected_times, ctx.counts, idx)[0])
         return plan
 
-
-def require_host_search(scheduler: SchedulerBase) -> None:
-    """The port runs the host searchers only: ``fused`` is ROADMAP module 5."""
-    if scheduler.search_backend != "host":
-        raise NotImplementedError(
-            f"{scheduler.name}: search_backend={scheduler.search_backend!r} "
-            "(the fused on-device search, core/search.py) is ROADMAP module "
-            "5, not ported yet; use search_backend='host'")

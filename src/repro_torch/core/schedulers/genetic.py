@@ -4,20 +4,23 @@ Population of valid plans; tournament selection; uniform crossover + repair
 (cardinality and availability restored); mutation swaps a selected device for
 a free one. Fitness = -TotalCost (estimated).
 
-Search backends (``search_backend``): ``host`` runs the historical
-per-individual numpy loops, scoring the whole population every generation
-through ``CostModel.cost_batch`` (the dense (P, K) sweep: the ``cuda``
-scoring backend's kernel). ``fused``, the on-device search loop, is ROADMAP
-module 5 and raises ``NotImplementedError`` here.
+Two search backends (``search_backend``):
+
+- ``fused`` (default): all generations on the cost model's device
+  (``repro_torch.core.search.ga_search``): an index-form population,
+  host-drawn tournaments and noise, and the greedy plan seeding individual 0.
+- ``host``: the historical per-individual numpy loops, scoring the whole
+  population every generation through ``CostModel.cost_batch`` (the dense
+  (P, K) sweep: the ``cuda`` scoring backend's kernel).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.core import search
 from repro_torch.core.plans import random_plans, repair_plan
-from repro_torch.core.schedulers.base import (SchedulerBase, SchedulingContext,
-                                              require_host_search)
+from repro_torch.core.schedulers.base import SchedulerBase, SchedulingContext
 from repro_torch.experiment.registry import register_scheduler
 
 
@@ -29,12 +32,22 @@ class GeneticScheduler(SchedulerBase):
                  generations: int = 12, mutation_rate: float = 0.2,
                  search_backend: str = "fused"):
         super().__init__(cost_model, seed, search_backend=search_backend)
-        require_host_search(self)
         self.population = population
         self.generations = generations
         self.mutation_rate = mutation_rate
 
     def schedule(self, ctx: SchedulingContext) -> np.ndarray:
+        if self.search_backend == "fused":
+            cm = self.cost_model
+            plan = search.ga_search(
+                self.rng, ctx.times32(), ctx.counts, ctx.available,
+                ctx.n_sel, alpha=cm.alpha, beta=cm.beta,
+                time_scale=cm.time_scale, fairness_scale=cm.fairness_scale,
+                delta_fairness=cm.delta_fairness,
+                population=self.population, generations=self.generations,
+                mutation_rate=self.mutation_rate,
+                avail_idx=ctx.available_indices(), device=cm.device)
+            return self._score_plan(ctx, plan)
         pop = random_plans(self.rng, ctx.available, ctx.n_sel, self.population)
         for _ in range(self.generations):
             cost = self._cost_of(ctx, pop)

@@ -3,19 +3,26 @@
 Neighborhood move: swap one selected device with one free device. Geometric
 cooling. Fitness = estimated TotalCost.
 
-Search backends (``search_backend``): ``host`` is the historical
-sequential numpy loop, scoring one plan per step through
-``CostModel.cost_batch`` (P = 1). ``fused``, the parallel on-device chains,
-is ROADMAP module 5 and raises ``NotImplementedError`` here.
+Two search backends (``search_backend``):
+
+- ``fused`` (default): ``chains`` parallel SA chains on the cost model's
+  device (``repro_torch.core.search.sa_search``), one program per decision
+  instead of ``steps`` sequential host round-trips, with the greedy plan
+  seeding chain 0. ``steps`` counts PER-CHAIN iterations, so the fused
+  default spends ``chains * steps`` cost evaluations per decision; for a
+  matched budget against ``host``, divide ``steps`` by ``chains`` and raise
+  ``cooling`` to the ``chains``-th power.
+- ``host``: the historical sequential numpy loop, scoring one plan per step
+  through ``CostModel.cost_batch`` (P = 1).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.core import search
 from repro_torch.core.plans import random_plans
-from repro_torch.core.schedulers.base import (SchedulerBase, SchedulingContext,
-                                              require_host_search)
+from repro_torch.core.schedulers.base import SchedulerBase, SchedulingContext
 from repro_torch.experiment.registry import register_scheduler
 
 
@@ -27,13 +34,22 @@ class SimulatedAnnealingScheduler(SchedulerBase):
                  t0: float = 1.0, cooling: float = 0.97, chains: int = 8,
                  search_backend: str = "fused"):
         super().__init__(cost_model, seed, search_backend=search_backend)
-        require_host_search(self)
         self.steps = steps
         self.t0 = t0
         self.cooling = cooling
         self.chains = chains
 
     def schedule(self, ctx: SchedulingContext) -> np.ndarray:
+        if self.search_backend == "fused":
+            cm = self.cost_model
+            plan = search.sa_search(
+                self.rng, ctx.times32(), ctx.counts, ctx.available,
+                ctx.n_sel, alpha=cm.alpha, beta=cm.beta,
+                time_scale=cm.time_scale, fairness_scale=cm.fairness_scale,
+                delta_fairness=cm.delta_fairness, steps=self.steps,
+                chains=self.chains, t0=self.t0, cooling=self.cooling,
+                avail_idx=ctx.available_indices(), device=cm.device)
+            return self._score_plan(ctx, plan)
         return self._schedule_host(ctx)
 
     def _schedule_host(self, ctx: SchedulingContext) -> np.ndarray:

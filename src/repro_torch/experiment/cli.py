@@ -1,7 +1,7 @@
 """Experiment CLI: run a spec file, materialize a preset, list components.
 
   python -m repro_torch.experiment.cli run spec.json [--verbose] [--out result.json]
-  python -m repro_torch.experiment.cli preset paper-group-a --run [--arg scheduler=greedy]
+  python -m repro_torch.experiment.cli preset paper-group-a --run [--arg scheduler=rlds]
   python -m repro_torch.experiment.cli preset quickstart --out spec.json
   python -m repro_torch.experiment.cli list
 
@@ -14,9 +14,11 @@ cpu`` runs without a card.
 Spec and result JSON written by the reference CLI load here unchanged, and
 a saved result's ``spec`` block is itself a valid input to ``run``.
 
-The fleet-scale genetic search on the card, its population scored by the
-CUDA kernel every generation:
+The fleet-scale preset on the card with its default BODS acquisition (the
+candidate block's statistics from the CUDA plan-scoring kernel), and the
+host genetic search whose population the kernel scores every generation:
 
+  python -m repro_torch.experiment.cli preset fleet-scale --run
   python -m repro_torch.experiment.cli preset fleet-scale \
       --arg scheduler=genetic --set search_backend=host \
       --set scoring_backend=cuda --run

@@ -3,7 +3,7 @@
 A spec is a frozen, JSON-round-trippable description of a complete multi-job
 federated-learning experiment: the jobs, the device pool, the cost-model
 coefficients, the scheduler (by registry name) and its search backend
-(``search_backend``: only the host reference is ported), the runtime
+(``search_backend``: ``fused`` on the device, or the ``host`` loops), the runtime
 (``synthetic`` closed-form convergence, or ``real_fl`` training on the CNN
 zoo), the training execution knobs (``TrainSpec``: fused engine, cohort
 buckets, eval cadence),
@@ -160,9 +160,10 @@ class FleetSpec:
     (BODS/DNN ``num_candidates``, genetic ``population``); ``scoring_backend``
     selects the plan-scoring path: ``numpy | torch | cuda | auto``;
     ``search_backend`` selects the plan-SEARCH path of the searching
-    schedulers (SA/genetic): ``host`` (the sequential numpy reference) or
-    ``fused`` (ROADMAP module 5, raises); ``num_shards`` None/1 = single
-    lane, anything else is ROADMAP module 7 and raises.
+    schedulers (BODS/SA/genetic): ``fused`` (the default, the search loops
+    on the cost model's device) or ``host`` (the sequential numpy loops);
+    ``num_shards`` None/1 = single lane, anything else is ROADMAP module 7
+    and raises.
     """
 
     num_devices: Optional[int] = None

@@ -1,1 +1,2 @@
-"""Gradient compression of the port (see ``compression``)."""
+"""Optimizers (``optimizers``) and gradient compression (``compression``)
+of the port."""

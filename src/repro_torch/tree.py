@@ -11,6 +11,9 @@ from __future__ import annotations
 
 from typing import Any, Callable, List
 
+import numpy as np
+import torch
+
 Tree = Any
 
 
@@ -31,5 +34,17 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     if isinstance(tree, (list, tuple)):
         out = [tree_map(fn, t, *(r[i] for r in rest))
                for i, t in enumerate(tree)]
-        return out if isinstance(tree, list) else type(tree)(out)
+        if isinstance(tree, list):
+            return out
+        if hasattr(tree, "_fields"):  # a NamedTuple (e.g. optimizer state)
+            return type(tree)(*out)
+        return type(tree)(out)
     return fn(tree, *rest)
+
+
+def as_tensor(leaf, device, dtype=None) -> torch.Tensor:
+    """A leaf (a tensor, or a numpy array or scalar as the reference's
+    state gives it) as a tensor on ``device``, copied from the host."""
+    if not isinstance(leaf, torch.Tensor):
+        leaf = torch.from_numpy(np.array(leaf))
+    return leaf.to(device=device, dtype=dtype)

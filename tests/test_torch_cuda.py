@@ -747,3 +747,60 @@ def test_reduced_moe_hybrid_ssm_match_plain_on_card(cuda, arch):
     np.testing.assert_allclose(got.cpu(), exp.cpu(), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(got_step.cpu(), exp_step.cpu(), atol=1e-4,
                                rtol=1e-4)
+
+
+# ---- the fused searches of core/search.py on the card ----
+# Fused BODS takes its candidates' statistics from kernel 2.1 (one launch a
+# decision, on the device-resident block); under ops.set_default_impl("ref")
+# the same decisions must come from the plain statistics. The fused GA's
+# noise is host-drawn and its sums f64, so the card repeats the CPU's plans.
+
+def records_of(res):
+    return [(r.job, r.round_idx, np.asarray(r.device_ids).tolist())
+            for r in res.records]
+
+
+@pytest.mark.parametrize("num_devices,candidates", [(2048, 128), (1000, 64)])
+def test_fused_bods_same_decisions_with_and_without_kernel(cuda, num_devices,
+                                                           candidates):
+    from repro_torch.experiment.presets import get_preset
+    from repro_torch.kernels import ops
+
+    spec = get_preset("fleet-scale", num_devices=num_devices,
+                      candidates=candidates, max_rounds=3)
+    runs = []
+    for impl in ("cuda", "ref"):
+        ops.set_default_impl(impl)
+        try:
+            before = sched_score.launches
+            res = spec.run(device="cuda")
+            runs.append((records_of(res), sched_score.launches - before))
+        finally:
+            ops.set_default_impl("cuda")
+    (got, launched), (exp, plain_launched) = runs
+    assert launched == len(got) > 0 and plain_launched == 0
+    assert got == exp
+
+
+def test_fused_ga_on_card_repeats_the_cpu(cuda):
+    from repro_torch.experiment.presets import get_preset
+
+    spec = get_preset("fleet-scale", scheduler="genetic", num_devices=3000,
+                      candidates=64, max_rounds=3)
+    assert records_of(spec.run(device="cuda")) == \
+        records_of(spec.run(device="cpu"))
+
+
+def test_ei_scores_on_card_match_cpu(cuda):
+    from repro_torch.core import search
+
+    rng = np.random.default_rng(0)
+    L, P, d = 256, 512, 6
+    valid = (rng.random(L) < 0.4).astype(np.float32)
+    args = [rng.normal(size=(L, d)), rng.normal(size=L) * valid, valid,
+            rng.normal(size=(P, d)), rng.normal(size=P)]
+    args = [torch.from_numpy(np.asarray(a, np.float32)) for a in args]
+    cpu = search.ei_scores(*args, 0.25)
+    card = search.ei_scores(*(a.to(cuda) for a in args), 0.25).cpu()
+    np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=1e-5,
+                               atol=1e-6)

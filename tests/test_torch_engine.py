@@ -119,7 +119,7 @@ def test_device_backends_through_the_engine():
 
 @pytest.mark.parametrize("preset,scheduler", [
     ("fault-injection", "genetic"), ("paper-group-b", "sa"),
-    ("quickstart", "fedcs")])
+    ("quickstart", "fedcs"), ("paper-group-a", "bods")])
 def test_state_carried_across_mid_run(preset, scheduler):
     """Advance the reference to t, carry its numpy/JSON state over, finish
     both: the port's records continue the reference's exactly."""
@@ -172,8 +172,6 @@ def test_reference_result_json_replays(tmp_path):
     (dict(obs={"trace_path": "t.json"}), "module 8"),
     (dict(policy="rlds-default"), "module 9"),
     (dict(fleet={"num_shards": 2}), "module 7"),
-    (dict(scheduler="bods"), "module 5"),
-    (dict(scheduler="genetic", search_backend="fused"), "module 5"),
     (dict(runtime="real_fl",
           jobs=(JobSpec(name="lm", model="musicgen-medium"),)), "module 10"),
     # the reference's real_fl trains only the CNN zoo, so no module fills
@@ -187,6 +185,23 @@ def test_axes_not_ported_raise(change, module):
         **change)
     with pytest.raises(NotImplementedError, match=module):
         spec.build(device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(scheduler="bods"),
+    dict(scheduler="genetic", search_backend="fused"),
+], ids=["bods", "genetic-fused"])
+def test_module5_axes_build_and_run_a_round(change):
+    """What raised until module 5 was ported (the paper's default
+    scheduler, the fused search) now builds and runs one round."""
+    spec = presets.get_preset("quickstart", scheduler="greedy",
+                              max_rounds=1).replace(**change)
+    exp = spec.build(device="cpu")
+    assert exp.engine.scheduler.search_backend == "fused"
+    records = exp.run().records
+    assert len(records) == len(spec.jobs)
+    for r in records:
+        assert np.unique(r.device_ids).size == spec.effective_n_sel()
 
 
 def test_model_other_than_stub_raises():
@@ -251,6 +266,11 @@ def test_port_imports_neither_jax_nor_reference():
         ".replace(search_backend='host', scoring_backend='cuda')"
         ".run(device='cpu')\n"
         "assert len(r.records) == 6, len(r.records)\n"
+        "import repro_torch.core.search, repro_torch.optim.optimizers\n"
+        "for s, kw in (('bods', {}), ('rlds', {'pretrain_rounds': 2})):\n"
+        "    r = get_preset('quickstart', scheduler=s, max_rounds=2)"
+        ".replace(scheduler_kwargs=kw).run(device='cpu')\n"
+        "    assert len(r.records) == 6, (s, len(r.records))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

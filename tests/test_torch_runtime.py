@@ -190,8 +190,8 @@ def test_robust_mode_matches_reference(mode):
 
 def real_fl_specs(fused=True):
     """``real-fl-two-job`` from both packages, shrunk (10 devices, 2 rounds,
-    1000 samples per job, 100 eval samples) and on greedy (bods is ROADMAP
-    module 5)."""
+    1000 samples per job, 100 eval samples) and on greedy (closed-form
+    decisions, so the training path is what the test compares)."""
     out = []
     for mod in (ref_presets, presets):
         spec = mod.get_preset("real-fl-two-job", scheduler="greedy",
