@@ -154,6 +154,30 @@ non-zero with a traceback, and no phase's failure is caught.
    multiple of 16), identical decisions under the plain version, and 2.1
    on the last block against its plain version. The kernels line counts
    (a)'s and (c)'s launches by path and by variant.
+11. service — the online scheduler service (``repro_torch.serve``) on the
+   card. (a) ``online-smoke``'s tenants and traffic (horizon 20,000 s,
+   interarrival 900, departures, readmissions, churn with drift) over
+   fleet-scale's pool (K = 10,000, n_sel = 100), fused BODS with 512
+   candidates, ``scoring_backend="cuda"``, through ``SchedulerService(spec,
+   device="cuda")`` with the ``obs`` axis writing a trace, a metrics JSONL
+   and an audit log, and a checkpoint every 4 events: records checked,
+   every tenant accounted for, one metrics and audit row and one
+   ``schedule`` and ``aggregate`` span per record. Kernel 2.1 launches once
+   per fused BODS acquisition, once per live job at each admission's
+   rescore ((1, K) plans copied from the host) and once per BODS cost
+   estimate of the cost model (bootstrap, observe); the launches by path
+   and variant, each path's last inputs held to the plain version and
+   timed, the rescore's plan copy time, decision latency per admission,
+   seconds per BODS decision, bytes and seconds per checkpoint save, and
+   the port's ``monitoring.report`` of the trace. The same spec with every
+   call of 2.1 on its plain version must give identical records and
+   rescore costs. (b) ``slo-overload`` at the same pool through ``python
+   -m repro_torch.serve --device cuda`` processes: an uninterrupted run, a
+   run killed by ``--crash-after`` (exit 137) mid-horizon with checkpoints
+   every 4 events, and ``--resume``: the resumed records equal the
+   uninterrupted run's exactly, the degradation histogram is not empty and
+   the faults are not inert. The kernels line counts (a)'s launches by
+   path beside phases 3 and 10.
 
 The line before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
@@ -2622,6 +2646,369 @@ def phase_schedulers(torch, dev, host_ga_s_per_decision: float) -> dict:
     return dict(fleet_bods=fleet, fleet_searches=searches, paper=plane)
 
 
+# ---- phase 11 ------------------------------------------------------------
+#
+# The online scheduler service at fleet size: online-smoke's tenants and
+# traffic (and slo-overload's, for the kill -9 arm) over fleet-scale's
+# pool, fused BODS, every rescore through the cuda scoring backend.
+
+SERVICE_K, SERVICE_N_SEL, SERVICE_CANDIDATES = 10_000, 100, 512
+SERVICE_CHECKPOINT_EVERY = 4
+SERVICE_TIMEOUT_S = 400       # each `python -m repro_torch.serve` process
+
+
+def service_spec(preset: str, obs_dir=None):
+    from repro_torch.experiment.presets import get_preset
+
+    spec = get_preset(preset).replace(fleet=dict(
+        num_devices=SERVICE_K, n_sel=SERVICE_N_SEL,
+        candidates=SERVICE_CANDIDATES, scoring_backend="cuda"))
+    if (spec.scheduler, spec.effective_search_backend()) != ("bods", "fused"):
+        raise AssertionError(f"{preset} no longer defaults to fused bods")
+    if obs_dir is not None:
+        spec = spec.replace(obs=dict(
+            trace_path=str(obs_dir / "trace.json"),
+            metrics_path=str(obs_dir / "metrics.jsonl"),
+            audit_path=str(obs_dir / "audit.jsonl")))
+    return spec
+
+
+class RescoreLog:
+    """Wraps one service's ``_rescore`` (the advisory cost of every live
+    job's plan at each admission): counts its calls, kernel 2.1's launches
+    inside them and their host seconds; times the host-to-device copies
+    of the plans (int8) inside them with the stream drained around each;
+    keeps the last ``plan_stats_cuda`` inputs."""
+
+    def __init__(self, torch, service):
+        from repro_torch.core import scoring
+        from repro_torch.kernels import sched_score as ss
+
+        self.calls = self.launches = self.copies = 0
+        self.seconds = self.copy_s = 0.0
+        self.last = None
+        rescore = service._rescore
+        h2d, plan_stats = scoring.h2d, scoring.plan_stats_cuda
+
+        def timed_h2d(array, device):
+            if array.dtype.name != "int8":
+                return h2d(array, device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = h2d(array, device)
+            torch.cuda.synchronize()
+            self.copy_s += time.perf_counter() - t0
+            self.copies += 1
+            return out
+
+        def kept_stats(times, counts, plans, device="cuda"):
+            self.last = (times, counts, plans)
+            return plan_stats(times, counts, plans, device=device)
+
+        def logged(now):
+            scoring.h2d, scoring.plan_stats_cuda = timed_h2d, kept_stats
+            n0, t0 = ss.launches, time.perf_counter()
+            try:
+                return rescore(now)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.launches += ss.launches - n0
+                self.calls += 1
+                scoring.h2d, scoring.plan_stats_cuda = h2d, plan_stats
+
+        service._rescore = logged
+
+
+class SaveLog:
+    """Times each ``save_service_checkpoint`` (state gathering, the npz and
+    manifest writes, the rename and keep-last-N) and sizes what it wrote."""
+
+    def __init__(self, persistence):
+        self.persistence = persistence
+        self.orig = persistence.save_service_checkpoint
+        self.seconds, self.bytes = [], []
+
+    def _save(self, service, event_idx):
+        t0 = time.perf_counter()
+        path = self.orig(service, event_idx)
+        self.seconds.append(time.perf_counter() - t0)
+        self.bytes.append(sum(f.stat().st_size
+                              for f in Path(path).iterdir()))
+        return path
+
+    def __enter__(self):
+        self.persistence.save_service_checkpoint = self._save
+        return self
+
+    def __exit__(self, *exc):
+        self.persistence.save_service_checkpoint = self.orig
+        return False
+
+
+def record_rows(records) -> list:
+    from repro_torch.experiment.spec import _record_to_dict
+
+    return [_record_to_dict(r) for r in records]
+
+
+def service_run(torch, spec, plain: bool, ckpt_dir=None) -> dict:
+    """One ``SchedulerService(spec, device="cuda")`` run: its records,
+    report, 2.1's launches in all, by variant, inside the fused BODS
+    acquisitions and inside the rescores, the decisions (``SearchLog``),
+    checkpoint saves and the last candidate block. With ``plain`` every
+    call of 2.1 (the acquisition's and the cuda scoring backend's) runs
+    its plain version on the same device tensors instead."""
+    from repro_torch.core import search
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sched_score as ss
+    from repro_torch.serve import persistence
+    from repro_torch.serve.service import SchedulerService
+
+    svc = SchedulerService(
+        spec, device="cuda", checkpoint_dir=ckpt_dir,
+        checkpoint_every=SERVICE_CHECKPOINT_EVERY if ckpt_dir else 0)
+    rescores = RescoreLog(torch, svc)
+    block, acq = {}, [0]
+    dense_stats, plan_stats = search._dense_stats, ops.sched_plan_stats
+
+    def keep_block(times, counts_c, plans):
+        block.update(times=times, counts_c=counts_c, plans=plans)
+        acq[0] += 1
+        return dense_stats(times, counts_c, plans)
+
+    def plain_stats(times, weights, plans, impl="ref"):
+        return plan_stats(times, weights, plans, impl="ref")
+
+    search._dense_stats = keep_block
+    if plain:
+        ops.set_default_impl("ref")
+        ops.sched_plan_stats = plain_stats
+    try:
+        with SearchLog(torch, search, "bods_acquire") as log, \
+                SaveLog(persistence) as saves:
+            reset_plan_stats_counts(ss)
+            t0 = time.perf_counter()
+            report = svc.run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = ss.launches
+            by_variant = dict(ss.launches_by_variant)
+    finally:
+        search._dense_stats, ops.sched_plan_stats = dense_stats, plan_stats
+        ops.set_default_impl("cuda")
+    return dict(svc=svc, report=report, records=svc.engine.records,
+                wall_s=wall_s, launches=launches, by_variant=by_variant,
+                acquisitions=acq[0], rescores=rescores, log=log,
+                saves=saves, block=block)
+
+
+def check_tenants(svc) -> None:
+    """Every tenant of the trace is in the metrics, and each tenant's round
+    count is the number of records of its jobs."""
+    import collections
+
+    arrived = {ev.tenant for ev in svc.trace if ev.kind == "arrive"}
+    tenants = svc.metrics.tenants
+    if arrived != set(tenants):
+        raise AssertionError(f"tenants {sorted(arrived ^ set(tenants))} "
+                             "missing from one side")
+    per = collections.Counter(svc._job_tenant[r.job]
+                              for r in svc.engine.records)
+    if per != {t: s.rounds for t, s in tenants.items() if s.rounds}:
+        raise AssertionError("tenant round counts do not match the records")
+
+
+def rescore_kernel_row(torch, ss, log: RescoreLog) -> dict:
+    """Kernel 2.1 on the last rescore's (1, K) inputs against its plain
+    version and timed (``block_kernel_row``)."""
+    import numpy as np
+
+    times, counts_c, plans = log.last
+    dev = torch.device("cuda")
+    return block_kernel_row(torch, ss, dict(
+        times=torch.from_numpy(np.asarray(times, np.float32)).to(dev),
+        counts_c=torch.from_numpy(np.asarray(counts_c, np.float32)).to(dev),
+        plans=torch.from_numpy(np.asarray(plans).astype(np.int8)).to(dev)))
+
+
+def serve_cli(args, cwd, timeout=SERVICE_TIMEOUT_S):
+    """``python -m repro_torch.serve --device cuda <args>`` in a process of
+    its own; returns (exit code, seconds, its standard error's tail)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.serve", "--device", "cuda",
+         *args], cwd=cwd, env=env, capture_output=True, text=True,
+        timeout=timeout)
+    return out.returncode, time.perf_counter() - t0, out.stderr[-3000:]
+
+
+def chaos_arms(torch) -> dict:
+    """(b): slo-overload at the service's pool through the CLI: an
+    uninterrupted run, a run hard-killed (``--crash-after``, exit 137)
+    mid-horizon with checkpoints every ``SERVICE_CHECKPOINT_EVERY``
+    events, and ``--resume`` of its directory. The resumed records must
+    equal the uninterrupted run's exactly, and the ladder must degrade."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.serve.traffic import trace_from_spec
+
+    spec = service_spec("slo-overload")
+    trace = trace_from_spec(spec.arrivals, len(spec.jobs), SERVICE_K)
+    # mid-horizon, and past a checkpoint boundary (odd)
+    crash_after = (len(trace) // 2) | 1
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        spec.save(str(tmp / "spec.json"))
+        rc, ref_s, err = serve_cli(["--spec", "spec.json", "--records-out",
+                                    "ref.json"], tmp)
+        if rc != 0:
+            raise AssertionError(f"uninterrupted run exited {rc}:\n{err}")
+        rc, crash_s, err = serve_cli(
+            ["--spec", "spec.json", "--checkpoint-dir", "ckpt",
+             "--checkpoint-every", str(SERVICE_CHECKPOINT_EVERY),
+             "--crash-after", str(crash_after)], tmp)
+        if rc != 137:
+            raise AssertionError(f"crash arm exited {rc}, expected 137:\n"
+                                 f"{err}")
+        steps = sorted(int(p.name.split("_")[1])
+                       for p in (tmp / "ckpt").glob("step_*"))
+        rc, resume_s, err = serve_cli(["--resume", "ckpt", "--records-out",
+                                       "res.json"], tmp)
+        if rc != 0:
+            raise AssertionError(f"resumed run exited {rc}:\n{err}")
+        ref = json.loads((tmp / "ref.json").read_text())
+        res = json.loads((tmp / "res.json").read_text())
+    if ref != res:
+        n = sum(a != b for a, b in zip(ref, res))
+        raise AssertionError(f"kill -9 + resume diverged: {len(ref)} vs "
+                             f"{len(res)} records, {n} differ")
+    rungs = {}
+    for r in ref:
+        rungs[r["rung"]] = rungs.get(r["rung"], 0) + 1
+        vals = (r["accuracy"], r["loss"], r["round_time"], r["cost"])
+        if not all(v is not None and np.isfinite(v) for v in vals):
+            raise AssertionError(f"non-finite record values {vals}")
+        if len(set(r["device_ids"])) != len(r["device_ids"]):
+            raise AssertionError("a record repeats a device id")
+    if sum(v for k, v in rungs.items() if k != "full") == 0:
+        raise AssertionError("the degradation histogram is empty")
+    dropped = sum(len(r["dropped"]) for r in ref)
+    corrupt = sum(len(r["corrupt_ids"]) for r in ref)
+    if dropped == 0 or corrupt == 0:
+        raise AssertionError(f"faults inert: dropped={dropped} "
+                             f"corrupt={corrupt}")
+    return dict(preset="slo-overload", K=SERVICE_K, n_sel=SERVICE_N_SEL,
+                events=len(trace), crash_after=crash_after,
+                checkpoint_every=SERVICE_CHECKPOINT_EVERY,
+                steps_on_disk_at_crash=steps, rounds=len(ref),
+                records_identical=True, rung_counts=rungs, dropped=dropped,
+                corrupt=corrupt, uninterrupted_s=ref_s, crash_s=crash_s,
+                resume_s=resume_s)
+
+
+def phase_service(torch) -> dict:
+    """Phase 11 (a): the scheduler service on the card (see the module
+    docstring); ``chaos_arms`` is (b)."""
+    import tempfile
+
+    from repro_torch.kernels import sched_score as ss
+    from repro_torch.monitoring import report as rpt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        spec = service_spec("online-smoke", obs_dir=tmp)
+        main = service_run(torch, spec, False, ckpt_dir=str(tmp / "ckpt"))
+        svc, report, log = main["svc"], main["report"], main["log"]
+        records, rescores = main["records"], main["rescores"]
+        check_records(records, SERVICE_N_SEL, SERVICE_K)
+        check_tenants(svc)
+        metrics = rpt.load_metrics(spec.obs.metrics_path)
+        audit = rpt.load_metrics(spec.obs.audit_path)
+        if len(metrics) != len(records) or len(audit) != len(records):
+            raise AssertionError(f"{len(metrics)} metrics rows and "
+                                 f"{len(audit)} audit rows for "
+                                 f"{len(records)} records")
+        summary = rpt.summarize(spec.obs.trace_path, spec.obs.metrics_path)
+    phases = summary["phases"]
+    for name in ("schedule", "aggregate"):
+        if phases.get(name, {}).get("count") != len(records):
+            raise AssertionError(f"{name} spans do not match the records")
+    served = sum(phases[n]["total_ms"] for n in
+                 ("serve_advance", "handle_event", "checkpoint_write")
+                 if n in phases) / 1e3
+    # 2.1 launches on three paths: once per fused BODS acquisition, once
+    # per live job at each admission's rescore (1, K), and BODS's own cost
+    # estimates through the cuda scoring backend (its bootstrap and each
+    # round's observe)
+    acq = main["acquisitions"]
+    if log.calls == 0 or acq != log.calls:
+        raise AssertionError(f"{acq} acquisition launches of plan_stats "
+                             f"for {log.calls} fused BODS decisions")
+    if rescores.launches == 0 or rescores.launches != rescores.copies:
+        raise AssertionError(f"{rescores.launches} rescore launches for "
+                             f"{rescores.copies} plan copies")
+    observe = main["launches"] - acq - rescores.launches
+    if observe < len(records):
+        raise AssertionError(f"{observe} cost-model launches for "
+                             f"{len(records)} observed rounds")
+    block = block_kernel_row(torch, ss, main["block"])
+    rescore = rescore_kernel_row(torch, ss, rescores)
+
+    # the same spec with every call of 2.1 on its plain version
+    plain = service_run(torch, service_spec("online-smoke"), True)
+    if plain["launches"] != 0:
+        raise AssertionError("the plain run launched plan_stats")
+    if record_rows(plain["records"]) != record_rows(records):
+        raise AssertionError("records differ from the plain run's")
+    if plain["svc"].rescore_costs != svc.rescore_costs:
+        raise AssertionError("rescore costs differ from the plain run's")
+
+    lat = report.decision_latency
+    saves = main["saves"]
+    service = dict(
+        preset="online-smoke", scheduler="bods", search_backend="fused",
+        K=SERVICE_K, n_sel=SERVICE_N_SEL, candidates=SERVICE_CANDIDATES,
+        events=len(svc.trace), arrivals=report.arrivals,
+        admissions=report.decision_latency["count"],
+        readmissions=report.readmissions, departures=report.departures,
+        churn_events=report.churn_events, rounds=len(records),
+        tenants=len(svc.metrics.tenants), wall_s=main["wall_s"],
+        plain_wall_s=plain["wall_s"],
+        decision_latency_p50_ms=lat["p50_s"] * 1e3,
+        decision_latency_p99_ms=lat["p99_s"] * 1e3,
+        bods_decisions=log.calls,
+        bods_s_per_decision=log.seconds / log.calls,
+        bods_syncs_per_decision=log.syncs / log.calls,
+        launches=main["launches"],
+        launches_by_path={"acquisition": acq, "rescore": rescores.launches,
+                          "bods cost model": observe},
+        launches_by_variant=main["by_variant"],
+        rescores=rescores.calls,
+        rescore_ms_per_admission=rescores.seconds / rescores.calls * 1e3,
+        rescore_plan_copies=rescores.copies,
+        rescore_plan_copy_ms=rescores.copy_s / rescores.copies * 1e3,
+        checkpoint_saves=len(saves.seconds),
+        checkpoint_bytes=(statistics.median(saves.bytes)
+                          if saves.bytes else None),
+        checkpoint_s=(statistics.median(saves.seconds)
+                      if saves.seconds else None),
+        checkpoint_s_max=max(saves.seconds) if saves.seconds else None,
+        records_identical_to_plain=True,
+        rescore_costs_identical_to_plain=True,
+        span_coverage_of_run=served / main["wall_s"],
+        report_coverage=summary["coverage"],
+        recompiles=summary["recompiles"],
+        phase_p50_ms={n: p["p50_ms"] for n, p in phases.items()},
+        phase_count={n: p["count"] for n, p in phases.items()},
+        bods_block=block, rescore_block=rescore)
+    return service
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's details here")
@@ -2677,6 +3064,10 @@ def main(argv=None) -> int:
     scheds = phase_schedulers(torch, dev,
                               main_path["wall_s"] / main_path["decisions"])
     emit(dict(phase="schedulers", **scheds))
+    service = phase_service(torch)
+    emit(dict(phase="service", **service))
+    kill9 = chaos_arms(torch)
+    emit(dict(phase="service-kill9", **kill9))
     at = next(r for r in kern["plan_stats"]
               if r["label"] == "genetic-fleet-scale")
     fc = next(r for r in fl_kern["scatter_add"]
@@ -2686,7 +3077,9 @@ def main(argv=None) -> int:
     by_path = {"main (host genetic)": main_path["launches"],
                "schedulers fleet-scale (fused bods)": bods_fleet["launches"],
                **{f"schedulers {r['preset']} (fused bods)":
-                  r["plan_stats_launches"] for r in paper_bods}}
+                  r["plan_stats_launches"] for r in paper_bods},
+               **{f"service online-smoke ({path})": n
+                  for path, n in service["launches_by_path"].items()}}
     kernels = [dict(
         name="plan_stats", route="cuda",
         source="src/repro_torch/kernels/csrc/sched_score.cu",
@@ -2695,14 +3088,18 @@ def main(argv=None) -> int:
         bods_block=bods_fleet["kernel"],
         paper_bods_blocks={f"{r['preset']}/bods": r["kernel"]
                            for r in paper_bods},
+        service_blocks={"bods": service["bods_block"],
+                        "rescore": service["rescore_block"]},
         max_abs_err=max([r["max_abs_err"] for r in kern["plan_stats"]]
                         + [r["kernel"]["max_abs_err"]
-                           for r in [bods_fleet] + paper_bods]),
+                           for r in [bods_fleet] + paper_bods]
+                        + [service["bods_block"]["max_abs_err"],
+                           service["rescore_block"]["max_abs_err"]]),
         ms=at["kernel_ms"], plain_ms=at["plain_ms"], h2d_ms=at["h2d_ms"],
         bound_ms=at["bound_ms"], bound_by=at["bound_by"], library_ms=None,
         launches_by_variant={
             v: n + sum(r["launches_by_variant"].get(v, 0)
-                       for r in [bods_fleet] + paper_bods)
+                       for r in [bods_fleet, service] + paper_bods)
             for v, n in main_path["launches_by_variant"].items()},
         floor_ms=kern["floor_ms"], shapes=kern["plan_stats"],
         **variant_keys(at)), dict(
@@ -2761,7 +3158,8 @@ def main(argv=None) -> int:
             dict(device=device, kernels=kernels, main=main_path,
                  fl_main=fl_main, lm_kernels=lm_kern, lm_serve=lm_serve,
                  lm_kernels_2=lm_kern2, lm_serve_2=lm_serve2,
-                 schedulers=scheds), indent=1))
+                 schedulers=scheds, service=service,
+                 service_kill9=kill9), indent=1))
     print(json.dumps({"kernels": [{k: v for k, v in kr.items()
                                    if k != "shapes"} for kr in kernels]}))
     print(smi)

@@ -204,7 +204,7 @@ class MultiJobEngine:
         # default — the untraced path is unchanged.
         self.events = None
         self.obs = None
-        # SLO resilience (the serve plane, ROADMAP module 8):
+        # SLO resilience (``repro_torch.serve.resilience.attach_resilience``):
         # ``governor`` routes scheduling decisions through the degradation
         # ladder; the retry knobs bound the historical retry-forever /
         # fail-fast paths. Defaults keep legacy behavior bit-identically.
@@ -660,8 +660,10 @@ class MultiJobEngine:
     # The engine's state splits into an ARRAY half (a checkpointable pytree:
     # fairness counts, in-flight round arrays, fault strikes) and a JSON
     # half (clock, event heap, per-job lifecycle, RNG states, in-flight
-    # scalars). ``repro_torch.convert`` carries both halves across from the
-    # reference engine.
+    # scalars). ``repro_torch.serve.persistence`` stores the former through
+    # ``repro_torch.checkpoint`` and the latter in the manifest's ``extra``;
+    # ``repro_torch.convert`` carries both halves across from the reference
+    # engine.
 
     def state_arrays(self) -> dict:
         inflight = {}

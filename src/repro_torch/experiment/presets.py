@@ -157,7 +157,8 @@ def online_smoke(scheduler: str = "bods", num_devices: int = 60,
     """Online multi-tenant scheduler service in the small: a 2-template
     tenant catalogue served under Poisson arrivals with tenant departures,
     probabilistic readmission (the warm hand-off path), and device churn
-    with capability drift (the service itself is ROADMAP module 8).
+    with capability drift — ``python -m repro_torch.serve --preset
+    online-smoke``.
     Jobs are short (max_rounds) so arrivals genuinely interleave with
     completions inside the horizon."""
     jobs = (

@@ -2,7 +2,7 @@
 
 One frozen, JSON-round-trippable axis describes how the online scheduler
 service must DEGRADE under pressure instead of stalling (the graceful-
-degradation contract of the serve plane, ROADMAP module 8):
+degradation contract of the serve plane, ``repro_torch.serve``):
 
 - **Decision deadline** (``decision_deadline_ms``): a wall-clock latency
   budget on every scheduling decision. The decision governor picks the

@@ -24,8 +24,8 @@ spec field, so the reference's spec and result JSON load here unchanged;
 ``torch``/``cuda``.
 
 Axes the port does not run yet raise ``NotImplementedError`` naming their
-ROADMAP module: a non-inert ``slo`` or an active ``obs`` (8), ``policy``
-(9), ``fleet.num_shards`` > 1 (7), and (10) the audio and VLM arch ids.
+ROADMAP module: ``policy`` (9), ``fleet.num_shards`` > 1 (7), and (10) the
+audio and VLM arch ids.
 A language model under ``real_fl`` raises too: the reference's ``real_fl``
 trains only the CNN zoo.
 """
@@ -46,7 +46,7 @@ from repro_torch.core.multijob import MultiJobEngine, RoundRecord
 from repro_torch.experiment.registry import RUNTIMES, SCHEDULERS
 from repro_torch.experiment.slo import SLOSpec
 from repro_torch.faults import FaultSpec
-from repro_torch.monitoring.session import ObsSpec
+from repro_torch.monitoring.session import ObsSession, ObsSpec
 
 STUB_MODEL = "stub"
 # The reference's scoring backends -> the port's.
@@ -188,10 +188,11 @@ class TrainSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ArrivalsSpec:
-    """Online traffic axis of the scheduler service (ROADMAP module 8):
-    dynamic job arrivals/departures and device churn. Carried so that specs
-    round-trip; as in the reference, ``build``/``run`` run ``spec.jobs`` as
-    a closed job set whatever this axis holds."""
+    """Online traffic axis of the scheduler service (``repro_torch.serve``):
+    dynamic job arrivals/departures and device churn. ``build``/``run`` run
+    ``spec.jobs`` as a closed job set whatever this axis holds;
+    ``SchedulerService`` turns them into a tenant catalogue and drives the
+    traffic."""
 
     mode: str = "poisson"               # "poisson" | "trace"
     seed: int = 0
@@ -235,13 +236,14 @@ class ExperimentSpec:
     runtime: str = "synthetic"
     runtime_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
     train: TrainSpec = TrainSpec()
-    # Observability axis (trace, metrics and audit sinks): ROADMAP module 8.
+    # Observability axis (``repro_torch.monitoring.session.ObsSpec``):
+    # trace / metrics-JSONL / audit-log sinks, off by default.
     obs: ObsSpec = ObsSpec()
     # Policy axis (a policy-zoo entry warm-starting the scheduler): ROADMAP
     # module 9.
     policy: Optional[str] = None
     policy_dir: str = "policies"
-    # Online traffic axis (the scheduler service, ROADMAP module 8).
+    # Online traffic axis (``repro_torch.serve``): None -> closed job set.
     arrivals: Optional[ArrivalsSpec] = None
     non_iid: bool = True            # data distribution (both runtime kinds)
     n_sel: Optional[int] = None     # devices per round; None -> 10% of pool
@@ -251,8 +253,8 @@ class ExperimentSpec:
     # (``effective_faults``).
     faults: Optional[FaultSpec] = None
     # Serve-resilience axis (``repro_torch.experiment.slo.SLOSpec``): None
-    # or an inert spec runs the plain engine; anything else is ROADMAP
-    # module 8.
+    # or an inert spec runs the plain engine; anything else attaches the
+    # decision governor, breakers and bounded retries at build time.
     slo: Optional[SLOSpec] = None
     # DEPRECATED alias (uniform transient dropouts, fixed cooldown) — kept
     # for old spec JSONs; subsumed by the ``faults`` axis, which wins when
@@ -309,14 +311,6 @@ class ExperimentSpec:
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for an axis this port does not run
         yet (each names its ROADMAP module); nothing is quietly ignored."""
-        if self.effective_slo() is not None:
-            raise NotImplementedError(
-                "a non-inert slo axis (serve resilience) is ROADMAP module "
-                "8, not ported yet")
-        if self.obs.active:
-            raise NotImplementedError(
-                "an active obs axis (ObsSession: trace, metrics, audit "
-                "sinks) is ROADMAP module 8, not ported yet")
         if self.policy:
             raise NotImplementedError(
                 "the policy axis (policy zoo, scheduler gym) is ROADMAP "
@@ -378,6 +372,16 @@ class ExperimentSpec:
             over_provision=self.over_provision,
             release_horizon=self.release_horizon,
             rng=np.random.default_rng(self.engine_seed))
+        slo = self.effective_slo()
+        if slo is not None:
+            # Lazy import: repro_torch.serve imports this module at package
+            # level.
+            from repro_torch.serve.resilience import attach_resilience
+
+            attach_resilience(engine, slo)
+        if self.obs.active:
+            ObsSession(self.obs, scheduler=self.scheduler,
+                       process_name=self.name).attach(engine)
         return Experiment(spec=self, engine=engine)
 
     def run(self, verbose: bool = False,
@@ -473,7 +477,13 @@ class Experiment:
             on_round: Optional[Callable[[RoundRecord], None]] = None
             ) -> "ExperimentResult":
         t0 = time.time()
-        self.engine.run(verbose=verbose, on_round=on_round)
+        try:
+            self.engine.run(verbose=verbose, on_round=on_round)
+        finally:
+            # Finalize the obs axis (trace write + sink close) even when a
+            # run dies mid-flight — partial traces are still loadable.
+            if self.engine.obs is not None:
+                self.engine.obs.close()
         return ExperimentResult(
             spec=self.spec, summary=self.engine.summary(),
             records=list(self.engine.records), wall_s=time.time() - t0)

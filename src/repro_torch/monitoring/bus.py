@@ -5,9 +5,11 @@ The engine publishes ``round`` (the finished ``RoundRecord``),
 ``round_begin`` (launch-time dict: job, round index, realized cohort size,
 estimated cost) and ``job_done``; the scheduler service adds
 ``serve.admit`` / ``serve.depart`` / ``serve.queue_wait`` /
-``serve.churn`` / ``serve.checkpoint``. Anything callable can subscribe;
-the metrics and audit sinks and the ``obs`` session that subscribes them
-are ROADMAP module 8.
+``serve.churn`` / ``serve.checkpoint``. ``MetricsLogger.on_round`` and
+``SchedulerAudit.on_round`` are the shipped sinks
+(``repro_torch.monitoring.session.ObsSession`` subscribes them
+declaratively from the spec's ``obs`` axis); anything callable can
+subscribe.
 
 Sinks are isolated: a raising sink is counted (``bus.errors``) and warned
 about once per (topic, sink), never allowed to break the publishing hot

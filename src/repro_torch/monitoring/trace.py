@@ -24,9 +24,9 @@ immediately: no RNG is touched, no arrays are built, so traced and
 untraced runs execute the SAME computation.
 
 Ownership: instrumented library code uses the module-global tracer via
-``span``/``counter``/``instant``; ``enable()``/``save()`` switch it on for
-a run and write it out (the declarative ``obs`` session that does so from
-a spec is ROADMAP module 8). Tests can also drive a private ``Tracer``.
+``span``/``counter``/``instant``; ``repro_torch.monitoring.session.ObsSession``
+(the ``obs`` spec axis) enables it for the duration of a run and writes the
+trace on close. Tests can also drive a private ``Tracer`` instance.
 """
 
 from __future__ import annotations

@@ -167,13 +167,15 @@ def test_reference_result_json_replays(tmp_path):
     assert_records_identical(ref_replay.records, replay.records)
 
 
+# Each case keeps the id it had when the list also held module 8's axes.
 @pytest.mark.parametrize("change,module", [
-    (dict(slo={"max_launch_retries": 2}), "module 8"),
-    (dict(obs={"trace_path": "t.json"}), "module 8"),
-    (dict(policy="rlds-default"), "module 9"),
-    (dict(fleet={"num_shards": 2}), "module 7"),
-    (dict(runtime="real_fl",
-          jobs=(JobSpec(name="lm", model="musicgen-medium"),)), "module 10"),
+    pytest.param(dict(policy="rlds-default"), "module 9",
+                 id="change2-module 9"),
+    pytest.param(dict(fleet={"num_shards": 2}), "module 7",
+                 id="change3-module 7"),
+    pytest.param(dict(runtime="real_fl",
+                      jobs=(JobSpec(name="lm", model="musicgen-medium"),)),
+                 "module 10", id="change4-module 10"),
     # the reference's real_fl trains only the CNN zoo, so no module fills
     # this; the id is the one the case had when the guard named module 10
     pytest.param(dict(runtime="real_fl", runtime_kwargs={},
@@ -185,6 +187,35 @@ def test_axes_not_ported_raise(change, module):
         **change)
     with pytest.raises(NotImplementedError, match=module):
         spec.build(device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(slo={"max_launch_retries": 2, "max_queue_depth": 4}),
+    dict(obs={"trace_path": "t.json", "metrics_path": "m.jsonl",
+              "audit_path": "a.jsonl"}),
+], ids=["slo", "obs"])
+def test_module8_axes_build_and_run(change, tmp_path, monkeypatch):
+    """What raised until module 8 was ported (a non-inert ``slo``, an
+    active ``obs``) now builds and runs: the SLO axis hangs the decision
+    governor on the engine and sets its retry knobs; the obs axis writes
+    the trace, one metrics row and one audit row per record."""
+    monkeypatch.chdir(tmp_path)
+    spec = presets.get_preset("quickstart", scheduler="greedy",
+                              max_rounds=2).replace(**change)
+    exp = spec.build(device="cpu")
+    records = exp.run().records
+    assert len(records) == 2 * len(spec.jobs)
+    if "slo" in change:
+        assert exp.engine.governor is not None
+        assert exp.engine.max_launch_retries == 2
+        assert {r.rung for r in records} <= {"full", "incremental",
+                                              "greedy", "last_good"}
+    else:
+        assert exp.engine.obs is not None
+        for name in ("m.jsonl", "a.jsonl"):
+            assert len((tmp_path / name).read_text().splitlines()) \
+                == len(records)
+        assert "traceEvents" in json.loads((tmp_path / "t.json").read_text())
 
 
 @pytest.mark.parametrize("change", [
@@ -271,8 +302,22 @@ def test_port_imports_neither_jax_nor_reference():
         "    r = get_preset('quickstart', scheduler=s, max_rounds=2)"
         ".replace(scheduler_kwargs=kw).run(device='cpu')\n"
         "    assert len(r.records) == 6, (s, len(r.records))\n"
+        "import tempfile\n"
+        "import repro_torch.checkpoint, repro_torch.monitoring\n"
+        "import repro_torch.serve, repro_torch.monitoring.report\n"
+        "from repro_torch.serve.service import SchedulerService\n"
+        "tmp = tempfile.TemporaryDirectory()\n"
+        "spec = get_preset('slo-overload', scheduler='bods',"
+        " num_devices=30, horizon=3000.0)\n"
+        "svc = SchedulerService(spec, device='cpu', checkpoint_dir=tmp.name,"
+        " checkpoint_every=2)\n"
+        "svc.run()\n"
+        "SchedulerService.resume(tmp.name, device='cpu')\n"
+        "tmp.cleanup()\n"
+        "assert len(svc.engine.records) > 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.')]\n"
+        " or m == 'repro' or m.startswith('repro.')"
+        " or m == 'ml_dtypes' or m.startswith('ml_dtypes.')]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=SRC)
