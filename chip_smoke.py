@@ -179,6 +179,28 @@ non-zero with a traceback, and no phase's failure is caught.
    the faults are not inert. The kernels line counts (a)'s launches by
    path beside phases 3 and 10.
 
+12. gym — the scheduler gym (``repro_torch.gym``) on the card. (a)
+   Random and policy (the RLDS LSTM) rollouts of T = 32 rounds at K = 64
+   and 256 devices (n_sel 10%, 3 jobs, the ``full`` curriculum) over E =
+   1, 32 and 256 environments from one set of draws: env steps a second of
+   host wall, launches per round and the device's idle share from
+   torch.profiler over 4 rounds; each random rollout replayed on the CPU
+   port from the same states and draws, costs within 1e-5 and plans
+   identical (a flip only where its availability or top-k margin lies
+   within 1e-6 relative, reported). (b) ``python -m repro_torch.gym
+   train`` at the gym's published size (``--curriculum full --num-devices
+   64,256 --envs 32 --rollout 32 --minibatches 4``, 8 of the documented 80
+   iterations): ms per iteration by stage, every mean cost finite, trained
+   and untrained eval cost (printed, not gated); ``eval`` and ``list`` on
+   the saved entry. (c) The ``policy`` axis: ``rlds-warmstart`` (20 of its
+   150 rounds) on that entry, records checked, the lazy pretraining never
+   run and no 2.1 launch; ``quickstart``'s fused BODS run cold, saved with
+   ``save_scheduler`` and run again warm-started from that entry through
+   ``bods_checked`` (2.1 once per decision, all ``row`` at K = 100,
+   decisions identical under the plain statistics, 2.1 on the last block
+   held to its plain version). The kernels line counts (c)'s launches by
+   path.
+
 The line before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
 them; the last line is ``{"ok": true, "device": {...}}``.
@@ -3009,6 +3031,284 @@ def phase_service(torch) -> dict:
     return service
 
 
+# ---- phase 12 ------------------------------------------------------------
+#
+# The scheduler gym on the card: environment throughput, REINFORCE training
+# through ``python -m repro_torch.gym`` at the gym's published size, and the
+# ``policy`` axis warm-starting RLDS and fused BODS from zoo entries.
+
+GYM_SIZES = ((64, 1), (64, 32), (64, 256), (256, 1), (256, 32), (256, 256))
+GYM_T = 32                 # rounds per rollout
+GYM_PROFILE_STEPS = 4      # rounds under torch.profiler per rollout
+GYM_JOBS = 3
+GYM_CURRICULUM = "full"
+GYM_TRAIN = ("--curriculum", "full", "--num-devices", "64,256", "--envs",
+             "32", "--rollout", "32", "--minibatches", "4", "--iters", "8")
+GYM_WARM_ROUNDS = 20       # rlds-warmstart's depth (the preset runs 150)
+GYM_TIMEOUT_S = 400        # each `python -m repro_torch.gym` process
+FLIP_RTOL = 1e-6
+
+
+class RoundLog:
+    """Wraps ``repro_torch.gym.env._apply_round`` for one run: keeps each
+    round's plans (E, K), occupancy clocks and launch instants on the host,
+    and its ``StepOut`` costs."""
+
+    def __init__(self, env):
+        self.env, self.rows = env, []
+        self._orig = env._apply_round
+
+    def _wrapper(self, cfg, state, plan, *draws):
+        now = self.env.release_instant(cfg, state)
+        new, out = self._orig(cfg, state, plan, *draws)
+        self.rows.append(dict(plan=plan.cpu(), busy=state.busy_until.cpu(),
+                              now=now.cpu(), cost=out.cost.cpu()))
+        return new, out
+
+    def __enter__(self):
+        self.env._apply_round = self._wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self.env._apply_round = self._orig
+        return False
+
+
+def gym_flip_margin(torch, row, other, gumbel, e: int, n_sel: int) -> dict:
+    """Why env ``e``'s plan may differ between two devices at this round:
+    the relative distance from the availability threshold ``now + 1e-6``
+    of the nearest device whose choice differs, and the top-k margin (the
+    gap between the n_sel-th and next Gumbel key among the available)."""
+    busy, now = row["busy"][e].double(), float(row["now"][e])
+    scale = max(1.0, abs(now))
+    moved = row["plan"][e] != other["plan"][e]
+    avail_margin = float((busy[moved] - (now + 1e-6)).abs().min()) / scale
+    keys = torch.where(busy <= now + 1e-6, gumbel[e].double().cpu(),
+                       -torch.inf)
+    top = torch.sort(keys, descending=True).values
+    gap = float(top[n_sel - 1] - top[n_sel]) if keys.numel() > n_sel else 0.0
+    topk_margin = gap / max(1.0, abs(float(top[n_sel - 1])))
+    return dict(avail_margin=avail_margin, topk_margin=topk_margin)
+
+
+def gym_replay(torch, genv, cfg, states, noise, card: RoundLog) -> dict:
+    """The random rollout again on the CPU port from the same states and
+    draws: costs within 1e-5, plans identical; a flip counts only where
+    its availability or top-k margin lies within ``FLIP_RTOL``, and that
+    env is compared no further."""
+    from repro_torch.tree import tree_map
+
+    cpu_states = tree_map(lambda x: x.cpu(), states)
+    cpu_noise = tuple(x.cpu() for x in noise)
+    with RoundLog(genv) as cpu:
+        genv.random_rollout(cfg, cpu_states, GYM_T, noise=cpu_noise)
+    E = states.busy_until.shape[0]
+    live = torch.ones(E, dtype=torch.bool)
+    flips, cost_err = [], 0.0
+    for t, (a, b) in enumerate(zip(card.rows, cpu.rows)):
+        differ = (a["plan"] != b["plan"]).any(-1) & live
+        for e in torch.nonzero(differ).flatten().tolist():
+            m = gym_flip_margin(torch, a, b, cpu_noise[2][:, t], e,
+                                cfg.n_sel)
+            if min(m.values()) > FLIP_RTOL:
+                raise AssertionError(f"gym replay: env {e} round {t} plan "
+                                     f"differs from the CPU's, margins {m}")
+            flips.append(dict(env=e, round=t, **m))
+        live &= ~differ
+        ca, cb = a["cost"][live].double(), b["cost"][live].double()
+        err = (ca - cb).abs()
+        if not bool((err <= 1e-5 * cb.abs().clamp(min=1.0)).all()):
+            raise AssertionError(f"gym replay: round {t} costs differ by "
+                                 f"{float(err.max())}")
+        cost_err = max(cost_err, float(err.max()) if err.numel() else 0.0)
+    return dict(flips=flips, envs_compared_to_end=int(live.sum()),
+                max_cost_err=cost_err)
+
+
+def gym_rollouts(torch) -> list:
+    """Phase 12 (a): random and policy rollouts at each (K, E) of
+    ``GYM_SIZES`` on the card from one set of draws: env steps (E x T
+    rounds) a second of host wall, launches per round and the device's
+    idle share from torch.profiler over ``GYM_PROFILE_STEPS`` rounds; each
+    random rollout replayed on the CPU (``gym_replay``)."""
+    from repro_torch.core.schedulers.rlds import init_policy
+    from repro_torch.gym import env as genv
+    from repro_torch.gym.scenarios import CURRICULA
+
+    dev = torch.device("cuda")
+    scen = CURRICULA[GYM_CURRICULUM]
+    params = init_policy(torch.Generator().manual_seed(0), dev)
+    rows = []
+    for K, E in GYM_SIZES:
+        cfg = genv.EnvConfig(num_devices=K, num_jobs=GYM_JOBS,
+                             n_sel=max(1, round(0.1 * K)))
+        gen = torch.Generator(device=dev).manual_seed(K * 1000 + E)
+        states = genv.batch_reset(cfg, scen, gen, E, device=dev)
+        noise = genv.draw_noise(gen, (E, GYM_T, K), dev)
+        head = tuple(x[:, :GYM_PROFILE_STEPS] for x in noise)
+        for kind in ("random", "policy"):
+            if kind == "random":
+                def run(T=GYM_T, nz=noise):
+                    return genv.random_rollout(cfg, states, T, noise=nz)
+            else:
+                def run(T=GYM_T, nz=noise):
+                    return genv.policy_rollout(cfg, params, states, T,
+                                               noise=nz)
+            run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, out = run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            if not bool(torch.isfinite(out.cost).all()):
+                raise AssertionError(f"gym {kind} K={K} E={E}: non-finite "
+                                     "costs")
+            split = device_split(torch, lambda: run(GYM_PROFILE_STEPS, head),
+                                 1)
+            row = dict(kind=kind, K=K, E=E, T=GYM_T, n_sel=cfg.n_sel,
+                       wall_s=wall_s, env_steps_per_s=E * GYM_T / wall_s,
+                       ms_per_round=wall_s / GYM_T * 1e3,
+                       launches_per_round=(split["device_events"]
+                                           / GYM_PROFILE_STEPS),
+                       device_idle_share=split["device_idle_share"],
+                       device_busy_ms_per_round=(
+                           split["device_busy_ms"] / GYM_PROFILE_STEPS
+                           if split["device_busy_ms"] is not None else None),
+                       mean_cost=float(out.cost.mean()))
+            if kind == "random":
+                with RoundLog(genv) as card:
+                    run()
+                row["cpu_replay"] = gym_replay(torch, genv, cfg, states,
+                                               noise, card)
+            rows.append(row)
+    return rows
+
+
+def gym_cli(args, cwd) -> tuple:
+    """``python -m repro_torch.gym *args`` on the card: its stdout and wall
+    seconds; fails on a non-zero exit."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.gym", *args],
+                         cwd=cwd, env=env, capture_output=True, text=True,
+                         timeout=GYM_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"python -m repro_torch.gym {args[0]} exited "
+                             f"{out.returncode}: {out.stderr[-3000:]}")
+    return out.stdout, wall_s
+
+
+def gym_train(zoo: str, name: str) -> dict:
+    """Phase 12 (b): training through the CLI at the gym's published size
+    (``GYM_TRAIN``, the reference CLI's documented command with 8 of its 80
+    iterations), then ``eval`` and ``list`` on the saved entry."""
+    import math
+    import re
+
+    text, train_s = gym_cli(("train", "--name", name, *GYM_TRAIN, "--zoo",
+                             zoo, "--device", "cuda"), ROOT)
+    iters = [dict(iter=int(m[1]), stage=int(m[2]), mean_cost=float(m[3]),
+                  ms=float(m[4])) for m in re.finditer(
+        r"iter +(\d+) stage (\d+) mean_cost=(\S+) \((\d+) ms\)", text)]
+    if len(iters) != 8 or not all(math.isfinite(i["mean_cost"])
+                                  for i in iters):
+        raise AssertionError(f"gym train: iterations {iters}")
+    ev = re.search(r"trained mean_cost=(\S+) +untrained=(\S+)", text)
+    by_stage = {}
+    for i in iters:
+        by_stage.setdefault(i["stage"], []).append(i["ms"])
+    ev_text, eval_s = gym_cli(("eval", "--name", name, "--curriculum",
+                               "full", "--num-devices", "64", "--zoo", zoo,
+                               "--device", "cuda"), ROOT)
+    evaluation = json.loads(ev_text)
+    if not math.isfinite(evaluation["eval"]["mean_cost"]):
+        raise AssertionError(f"gym eval: {evaluation}")
+    listing, _ = gym_cli(("list", "--zoo", zoo), ROOT)
+    if name not in listing:
+        raise AssertionError(f"gym list: {listing!r}")
+    sizes = GYM_TRAIN[GYM_TRAIN.index("--num-devices") + 1].split(",")
+    return dict(args=list(GYM_TRAIN), process_s=train_s,
+                ms_per_iter_by_stage={
+                    f"K={sizes[s]}": ms for s, ms in by_stage.items()},
+                mean_cost_by_iter=[i["mean_cost"] for i in iters],
+                eval_trained_cost=float(ev[1]),
+                eval_untrained_cost=float(ev[2]),
+                eval_cli=evaluation["eval"], eval_process_s=eval_s)
+
+
+def phase_gym(torch) -> dict:
+    """Phase 12: the scheduler gym on the card (see the module docstring).
+    (c) ``rlds-warmstart`` on (b)'s entry, and ``quickstart``'s fused BODS
+    cold, saved to the zoo and run again warm through ``bods_checked``."""
+    import tempfile
+
+    from repro_torch.experiment.presets import get_preset
+    from repro_torch.gym import PolicyZoo
+    from repro_torch.kernels import sched_score as ss
+
+    rollouts = gym_rollouts(torch)
+    with tempfile.TemporaryDirectory() as zoo:
+        train = gym_train(zoo, "rlds-full")
+
+        spec = get_preset("rlds-warmstart", policy="rlds-full",
+                          policy_dir=zoo, max_rounds=GYM_WARM_ROUNDS)
+        exp = spec.build(device="cuda")
+        sched = exp.engine.scheduler
+        if not sched._pretrained:
+            raise AssertionError("the warm-started RLDS is not pretrained")
+
+        def no_pretrain(*a):
+            raise AssertionError("rlds-warmstart ran the lazy pretraining")
+
+        sched._pretrain = no_pretrain
+        reset_plan_stats_counts(ss)
+        t0 = time.perf_counter()
+        result = exp.run()
+        wall_s = time.perf_counter() - t0
+        check_records(result.records, spec.effective_n_sel(),
+                      spec.effective_num_devices())
+        if ss.launches != 0:
+            raise AssertionError(f"rlds-warmstart: {ss.launches} plan_stats "
+                                 "launches")
+        warm_rlds = dict(preset="rlds-warmstart", max_rounds=GYM_WARM_ROUNDS,
+                         rounds=len(result.records), wall_s=wall_s,
+                         s_per_round=wall_s / len(result.records),
+                         plan_stats_launches=0, pretrain_ran=False)
+
+        spec = get_preset("quickstart")
+        if (spec.scheduler, spec.effective_search_backend()) != ("bods",
+                                                                 "fused"):
+            raise AssertionError("quickstart no longer defaults to fused bods")
+        cold = spec.build(device="cuda")
+        t0 = time.perf_counter()
+        cold_result = cold.run()
+        cold_s = time.perf_counter() - t0
+        check_records(cold_result.records, spec.effective_n_sel(),
+                      spec.effective_num_devices())
+        PolicyZoo(zoo).save_scheduler("bods-quickstart", cold.engine.scheduler,
+                                      meta={"preset": "quickstart"})
+        warm = spec.replace(policy="bods-quickstart", policy_dir=zoo)
+        run = bods_checked(torch, warm, "quickstart warm-started BODS")
+    if run["kernel"]["variant"] != "row":
+        raise AssertionError(f"quickstart's block picked "
+                             f"{run['kernel']['variant']}, expected row")
+    main = run["main"]
+    warm_bods = dict(
+        preset="quickstart", scheduler="bods", search_backend="fused",
+        cold_rounds=len(cold_result.records), cold_wall_s=cold_s,
+        rounds=len(main["records"]), wall_s=main["wall_s"],
+        plain_wall_s=run["plain"]["wall_s"], launches=main["launches"],
+        launches_by_variant=main["by_variant"],
+        decisions_identical_to_plain=True,
+        kernel_vs_plain_max_est_cost_diff=run["est_diff"],
+        kernel=run["kernel"], **main["log"].per_decision())
+    return dict(rollouts=rollouts, train=train, warm_rlds=warm_rlds,
+                warm_bods=warm_bods)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's details here")
@@ -3068,6 +3368,8 @@ def main(argv=None) -> int:
     emit(dict(phase="service", **service))
     kill9 = chaos_arms(torch)
     emit(dict(phase="service-kill9", **kill9))
+    gym = phase_gym(torch)
+    emit(dict(phase="gym", **gym))
     at = next(r for r in kern["plan_stats"]
               if r["label"] == "genetic-fleet-scale")
     fc = next(r for r in fl_kern["scatter_add"]
@@ -3079,7 +3381,11 @@ def main(argv=None) -> int:
                **{f"schedulers {r['preset']} (fused bods)":
                   r["plan_stats_launches"] for r in paper_bods},
                **{f"service online-smoke ({path})": n
-                  for path, n in service["launches_by_path"].items()}}
+                  for path, n in service["launches_by_path"].items()},
+               "gym quickstart warm-started (fused bods)":
+                   gym["warm_bods"]["launches"],
+               "gym rlds-warmstart": gym["warm_rlds"]["plan_stats_launches"]}
+    gym_bods = gym["warm_bods"]
     kernels = [dict(
         name="plan_stats", route="cuda",
         source="src/repro_torch/kernels/csrc/sched_score.cu",
@@ -3090,16 +3396,17 @@ def main(argv=None) -> int:
                            for r in paper_bods},
         service_blocks={"bods": service["bods_block"],
                         "rescore": service["rescore_block"]},
+        gym_bods_block=gym_bods["kernel"],
         max_abs_err=max([r["max_abs_err"] for r in kern["plan_stats"]]
                         + [r["kernel"]["max_abs_err"]
-                           for r in [bods_fleet] + paper_bods]
+                           for r in [bods_fleet, gym_bods] + paper_bods]
                         + [service["bods_block"]["max_abs_err"],
                            service["rescore_block"]["max_abs_err"]]),
         ms=at["kernel_ms"], plain_ms=at["plain_ms"], h2d_ms=at["h2d_ms"],
         bound_ms=at["bound_ms"], bound_by=at["bound_by"], library_ms=None,
         launches_by_variant={
             v: n + sum(r["launches_by_variant"].get(v, 0)
-                       for r in [bods_fleet, service] + paper_bods)
+                       for r in [bods_fleet, service, gym_bods] + paper_bods)
             for v, n in main_path["launches_by_variant"].items()},
         floor_ms=kern["floor_ms"], shapes=kern["plan_stats"],
         **variant_keys(at)), dict(
@@ -3159,7 +3466,7 @@ def main(argv=None) -> int:
                  fl_main=fl_main, lm_kernels=lm_kern, lm_serve=lm_serve,
                  lm_kernels_2=lm_kern2, lm_serve_2=lm_serve2,
                  schedulers=scheds, service=service,
-                 service_kill9=kill9), indent=1))
+                 service_kill9=kill9, gym=gym), indent=1))
     print(json.dumps({"kernels": [{k: v for k, v in kr.items()
                                    if k != "shapes"} for kr in kernels]}))
     print(smi)

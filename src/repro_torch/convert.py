@@ -31,8 +31,11 @@ reference's CNN params, a list of dicts of numpy arrays as
 params)`` takes either form for one job. A language model's params cross
 with ``lm_params_from_reference`` / ``lm_params_to_reference``: the
 reference's ``lm_init`` params (nested dicts, block leaves stacked on a
-leading layer axis) keep that layout in the port. Nothing here imports the
-reference.
+leading layer axis) keep that layout in the port. The scheduler gym's
+environments cross with ``env_state_from_reference`` (the reference's
+``EnvState`` or ``ScenarioDraw``, one environment or a vmapped batch, to the
+port's batched tensors), so that both packages step the same scenarios.
+Nothing here imports the reference.
 """
 
 from __future__ import annotations
@@ -167,6 +170,43 @@ def dnn_state_to_reference(tree: Dict[str, Any]) -> Dict[str, Any]:
     out = {k: _host(v) for k, v in tree.items() if k != "params"}
     out["params"] = tree_map(_host, dict(tree["params"]))
     return out
+
+
+def _env_leaf(a, batched: bool, device) -> torch.Tensor:
+    """A reference gym leaf as a tensor with a leading environment axis:
+    floats f32, bools bool, integer indices int64 (torch's index type)."""
+    a = np.asarray(a)
+    if not batched:
+        a = a[None]
+    if a.dtype == np.bool_:
+        return torch.as_tensor(np.array(a), device=device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.as_tensor(a.astype(np.int64), device=device)
+    return torch.as_tensor(a.astype(np.float32), device=device)
+
+
+def env_state_from_reference(tree, device: str = "cuda"):
+    """The reference's gym ``EnvState`` or ``ScenarioDraw`` (numpy or JAX
+    leaves; one environment, or E of them as ``vmap`` gives them) as the
+    port's, with a leading environment axis on ``device``. The state's PRNG
+    key is dropped: the port's draws come from a ``torch.Generator``, or
+    are injected (``policy_rollout(..., noise=...)``)."""
+    from repro_torch.gym.env import EnvState, Scenario
+    from repro_torch.gym.scenarios import ScenarioDraw
+
+    def fields(obj, cls, batched):
+        return {f: _env_leaf(getattr(obj, f), batched, device)
+                for f in cls._fields}
+
+    if not hasattr(tree, "scen"):
+        return ScenarioDraw(**fields(tree, ScenarioDraw,
+                                     np.ndim(tree.a) == 2))
+    batched = np.ndim(tree.busy_until) == 2
+    dyn = {f: _env_leaf(getattr(tree, f), batched, device)
+           for f in EnvState._fields if f != "scen"}
+    dyn["round_idx"] = dyn["round_idx"].to(torch.int32)
+    return EnvState(scen=Scenario(**fields(tree.scen, Scenario, batched)),
+                    **dyn)
 
 
 def load_engine_state(spec: Union[ExperimentSpec, dict],

@@ -85,21 +85,24 @@ def _plans_int8(plans: np.ndarray) -> np.ndarray:
 # ---- plain functions on tensors (the torch backend) ----------------------
 
 def _fairness_from(wsum, n, counts_c, K: float, delta_fairness: bool):
-    c1 = counts_c.sum()
+    # counts_c (..., K) against wsum and n (..., P): the count sums keep a
+    # trailing axis of 1 so that each batch row meets its own plans.
+    c1 = counts_c.sum(dim=-1, keepdim=True)
     if delta_fairness:
         # Var(c+v) - Var(c), expanded: cancellation-free at any scale.
         return wsum / K - (2.0 * c1 * n + n * n) / (K * K)
-    c2 = (counts_c * counts_c).sum()
+    c2 = (counts_c * counts_c).sum(dim=-1, keepdim=True)
     return (c2 + wsum) / K - ((c1 + n) / K) ** 2
 
 
 def _masked_wsum(sel: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    # Accumulated in float64, rounded to float32 once: plans selecting the
-    # same multiset of weights score identically wherever the devices sit
-    # (a float32 tree sum can differ by an ulp between such plans, which
-    # would turn the host searchers' exact ties into position noise).
-    return torch.where(sel, w[None, :], 0.0).sum(
-        dim=1, dtype=torch.float64).to(torch.float32)
+    # (..., P, K) selections, (..., K) weights -> (..., P). Accumulated in
+    # float64, rounded to float32 once: plans selecting the same multiset
+    # of weights score identically wherever the devices sit (a float32
+    # tree sum can differ by an ulp between such plans, which would turn
+    # the host searchers' exact ties into position noise).
+    return torch.where(sel, w[..., None, :], 0.0).sum(
+        dim=-1, dtype=torch.float64).to(torch.float32)
 
 
 def score_dense(times: torch.Tensor, counts_c: torch.Tensor,
@@ -135,18 +138,21 @@ def score_index(times: torch.Tensor, counts_c: torch.Tensor,
 
 def fairness_dense(counts_c: torch.Tensor, plans: torch.Tensor,
                    delta_fairness: bool) -> torch.Tensor:
-    """(P,) Formula-5 fairness (or its increment) from centred counts."""
-    K = float(counts_c.shape[0])
+    """(..., P) Formula-5 fairness (or its increment) from (..., K) centred
+    counts and (..., P, K) plans: leading batch dims pair each counts
+    vector with its own plans (the gym's E environments)."""
+    K = float(counts_c.shape[-1])
     sel = plans != 0
     w = 2.0 * counts_c + 1.0
-    n = sel.sum(dim=1).to(torch.float32)
+    n = sel.sum(dim=-1).to(torch.float32)
     return _fairness_from(_masked_wsum(sel, w), n, counts_c, K,
                           delta_fairness)
 
 
 def round_time_dense(times: torch.Tensor, plans: torch.Tensor) -> torch.Tensor:
-    """(P,) Formula-3 round time (masked max; empty plan -> 0)."""
-    t = torch.where(plans != 0, times[None, :], -torch.inf).amax(dim=1)
+    """(..., P) Formula-3 round time (masked max; empty plan -> 0) from
+    (..., K) times and (..., P, K) plans."""
+    t = torch.where(plans != 0, times[..., None, :], -torch.inf).amax(dim=-1)
     return torch.where(torch.isfinite(t), t, 0.0)
 
 

@@ -141,8 +141,9 @@ def rlds_warmstart(policy: str = "rlds-default",
                    num_devices: int = 100, max_rounds: int = 150,
                    seed: int = 1) -> ExperimentSpec:
     """Quickstart scenario driven by a gym-trained RLDS policy loaded from
-    the policy zoo (ROADMAP module 9). Construction skips the legacy 300-round constructor
-    pre-training entirely — the warm start replaces it."""
+    the policy zoo (train one first: ``python -m repro_torch.gym train
+    --name rlds-default``). Construction skips the legacy 300-round
+    constructor pre-training entirely — the warm start replaces it."""
     spec = quickstart(scheduler="rlds", n_jobs=n_jobs,
                       num_devices=num_devices, max_rounds=max_rounds,
                       seed=seed)

@@ -8,8 +8,8 @@ coefficients, the scheduler (by registry name) and its search backend
 zoo), the training execution knobs (``TrainSpec``: fused engine, cohort
 buckets, eval cadence),
 the fault/straggler/queueing knobs of the engine, and the ``policy`` axis
-(a policy-zoo entry, ROADMAP module 9). ``spec.build(device=...)`` wires the
-``DevicePool -> CostModel -> calibrate -> scheduler -> runtime ->
+(a policy-zoo entry of ``repro_torch.gym``). ``spec.build(device=...)``
+wires the ``DevicePool -> CostModel -> calibrate -> scheduler -> runtime ->
 MultiJobEngine`` chain that every example/benchmark/test used to assemble by
 hand; ``spec.run()`` executes it and returns an ``ExperimentResult`` whose
 ``to_dict()`` embeds the spec, so any saved result is a replayable spec.
@@ -24,8 +24,8 @@ spec field, so the reference's spec and result JSON load here unchanged;
 ``torch``/``cuda``.
 
 Axes the port does not run yet raise ``NotImplementedError`` naming their
-ROADMAP module: ``policy`` (9), ``fleet.num_shards`` > 1 (7), and (10) the
-audio and VLM arch ids.
+ROADMAP module: ``fleet.num_shards`` > 1 (7), and (10) the audio and VLM
+arch ids.
 A language model under ``real_fl`` raises too: the reference's ``real_fl``
 trains only the CNN zoo.
 """
@@ -239,8 +239,8 @@ class ExperimentSpec:
     # Observability axis (``repro_torch.monitoring.session.ObsSpec``):
     # trace / metrics-JSONL / audit-log sinks, off by default.
     obs: ObsSpec = ObsSpec()
-    # Policy axis (a policy-zoo entry warm-starting the scheduler): ROADMAP
-    # module 9.
+    # Policy axis: a policy-zoo entry (``repro_torch.gym.PolicyZoo``)
+    # warm-starting the scheduler (rlds, dnn or bods).
     policy: Optional[str] = None
     policy_dir: str = "policies"
     # Online traffic axis (``repro_torch.serve``): None -> closed job set.
@@ -311,10 +311,6 @@ class ExperimentSpec:
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for an axis this port does not run
         yet (each names its ROADMAP module); nothing is quietly ignored."""
-        if self.policy:
-            raise NotImplementedError(
-                "the policy axis (policy zoo, scheduler gym) is ROADMAP "
-                "module 9, not ported yet")
         if self.fleet.num_shards not in (None, 1):
             raise NotImplementedError(
                 f"fleet.num_shards={self.fleet.num_shards!r}: fleet sharding "
@@ -362,7 +358,16 @@ class ExperimentSpec:
             "cost_model": cost_model, "seed": self.scheduler_seed,
             **self._candidate_kwargs(),
             **dict(self.scheduler_kwargs)}
+        if self.policy and self.scheduler == "rlds":
+            # The warm start replaces the lazy Algorithm-3 pre-training
+            # (load_state_dict marks the policy pre-trained regardless);
+            # zeroing the knob just keeps the constructor contract obvious.
+            sched_kwargs.setdefault("pretrain_rounds", 0)
         scheduler = SCHEDULERS.create(self.scheduler, **sched_kwargs)
+        if self.policy:
+            from repro_torch.gym.zoo import PolicyZoo
+
+            PolicyZoo(self.policy_dir).load_into(self.policy, scheduler)
         runtime = RUNTIMES.get(self.runtime)(
             self, jobs, pool, device=str(device), **dict(self.runtime_kwargs))
         engine = MultiJobEngine(

@@ -167,10 +167,9 @@ def test_reference_result_json_replays(tmp_path):
     assert_records_identical(ref_replay.records, replay.records)
 
 
-# Each case keeps the id it had when the list also held module 8's axes.
+# Each case keeps the id it had when the list also held module 8's and
+# module 9's axes.
 @pytest.mark.parametrize("change,module", [
-    pytest.param(dict(policy="rlds-default"), "module 9",
-                 id="change2-module 9"),
     pytest.param(dict(fleet={"num_shards": 2}), "module 7",
                  id="change3-module 7"),
     pytest.param(dict(runtime="real_fl",
@@ -216,6 +215,27 @@ def test_module8_axes_build_and_run(change, tmp_path, monkeypatch):
             assert len((tmp_path / name).read_text().splitlines()) \
                 == len(records)
         assert "traceEvents" in json.loads((tmp_path / "t.json").read_text())
+
+
+@pytest.mark.parametrize("scheduler", ["rlds", "dnn", "bods"])
+def test_module9_policy_axis_builds_and_runs(scheduler, tmp_path):
+    """What raised until module 9 was ported (the ``policy`` axis) now
+    builds and runs: the spec warm-starts its scheduler from the zoo entry
+    (an RLDS entry skips the lazy pretraining). tests/test_torch_zoo.py
+    holds the records to the reference's."""
+    from repro_torch.gym import PolicyZoo
+
+    spec = presets.get_preset("quickstart", scheduler=scheduler,
+                              max_rounds=2)
+    donor = spec.build(device="cpu").engine.scheduler
+    PolicyZoo(str(tmp_path)).save_scheduler("p", donor)
+    spec = spec.replace(policy="p", policy_dir=str(tmp_path))
+    exp = spec.build(device="cpu")
+    assert exp.engine.scheduler.name == scheduler
+    if scheduler == "rlds":
+        assert exp.engine.scheduler._pretrain_cfg[0] == 0
+    records = exp.run().records
+    assert len(records) == 2 * len(spec.jobs)
 
 
 @pytest.mark.parametrize("change", [
@@ -298,6 +318,11 @@ def test_port_imports_neither_jax_nor_reference():
         ".run(device='cpu')\n"
         "assert len(r.records) == 6, len(r.records)\n"
         "import repro_torch.core.search, repro_torch.optim.optimizers\n"
+        "import repro_torch.gym, repro_torch.gym.cli\n"
+        "import repro_torch.core.loss_estimation\n"
+        "from repro_torch.gym import TrainConfig, default_stages, train_rlds\n"
+        "train_rlds(default_stages(num_devices=(24,)), TrainConfig("
+        "num_envs=2, rollout_len=2, iters=1), device='cpu')\n"
         "for s, kw in (('bods', {}), ('rlds', {'pretrain_rounds': 2})):\n"
         "    r = get_preset('quickstart', scheduler=s, max_rounds=2)"
         ".replace(scheduler_kwargs=kw).run(device='cpu')\n"
