@@ -201,6 +201,35 @@ non-zero with a traceback, and no phase's failure is caught.
    held to its plain version). The kernels line counts (c)'s launches by
    path.
 
+13. fleet-shard — fleet sharding (``repro_torch.core.shard``, module 7) on
+   the card; each part prints one line with the card's name and power
+   limit. (a) Dense scoring at bench_fleet's K = 262,144, P = 4096, n_sel
+   = K/100 (int8 plans, 1.07 GB, drawn on the card, one row empty): the
+   ``cuda`` and ``torch`` backends under ``emulate`` at N = 1, 2, 4 and 8
+   against single-lane ``cuda``: ``max`` and ``n`` exact, scores within
+   1e-5, 2.1 once per block (all ``stream``); each call's ms split into
+   host block copies, copies to the card, the partials (CUDA events from
+   each launch's start: the host's launch path and the kernel) and the
+   combine (medians of 3); 2.1 alone on each N's last block (N = 1's is
+   the whole plans), held to its plain version, beside its bound. (b)
+   Index form at K = 1,000,000, P = 4096, n_sel = 10,000:
+   ``random_plan_indices_sharded`` on the card at N = 1, 4, 8, every row
+   n_sel distinct available ids; seconds and peak device memory per N;
+   the sharded index scores within 1e-5 of the single lane's. (c)
+   ``fleet-scale``'s fused SA, GA and BODS (512 candidates) split over the
+   one card named 4 times: every decision's plan identical to N = 1's,
+   BODS's candidate blocks bit for bit, 2.1 once per block per BODS
+   decision (held to its plain version on the last block), ms per
+   decision at both N. (d) ``fleet-scale`` through the spec with
+   ``fleet.num_shards`` 4 and "auto": the fused schedulers fall back to
+   one lane on one card (the fallbacks counted) and their records equal
+   (c)'s single lane's; the host GA (``scoring_backend="cuda"``) launches
+   2.1 once per block of each population it scores, every decision
+   replayed at one shard: each flip printed with both plans' costs, and
+   the pairs of plans whose order the sharded costs swap with the single
+   lane's gap between them. The kernels line counts (a)'s, (c)'s and
+   (d)'s launches by path.
+
 The line before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
 them; the last line is ``{"ok": true, "device": {...}}``.
@@ -2521,12 +2550,18 @@ def bods_checked(torch, spec, what: str) -> dict:
 
 
 def block_kernel_row(torch, ss, block) -> dict:
-    """Kernel 2.1 on the main path's last candidate block: held to its
-    plain version (check_stats), timed by CUDA events beside the plain
-    version, with the bound of phase 2."""
-    times = block["times"].clone()
-    weights = 2.0 * block["counts_c"] + 1.0
-    plans = block["plans"].contiguous().view(torch.int8)
+    """Kernel 2.1 on the main path's last candidate block (times, centred
+    counts, plans): ``kernel_row`` on the weights the path gives it."""
+    return kernel_row(torch, ss, block["times"],
+                      2.0 * block["counts_c"] + 1.0, block["plans"])
+
+
+def kernel_row(torch, ss, times, weights, plans) -> dict:
+    """Kernel 2.1 on one block of the main path: held to its plain version
+    (check_stats), timed by CUDA events beside the plain version, with the
+    bound of phase 2."""
+    times = times.clone()
+    plans = plans.contiguous().view(torch.int8)
     P, K = plans.shape
     variant = ss.kernel_variant(P, K, plans.data_ptr() % 16 == 0)
     exp = ss.plan_stats_ref(times, weights, plans)
@@ -3309,6 +3344,544 @@ def phase_gym(torch) -> dict:
                 warm_bods=warm_bods)
 
 
+# ---- phase 13 ------------------------------------------------------------
+#
+# Fleet sharding (module 7): the fleet axis of scoring in blocks, kernel
+# 2.1 once per block; the fused searches split over one card named N times;
+# fleet-scale through the spec with fleet.num_shards set.
+
+SHARD_DENSE_K, SHARD_DENSE_P = 262_144, 4096    # bench_fleet's DENSE_MAX_K
+SHARD_INDEX_K, SHARD_INDEX_P, SHARD_INDEX_SEL = 1_000_000, 4096, 10_000
+SHARD_COUNTS = (1, 2, 4, 8)
+SHARD_INDEX_COUNTS = (1, 4, 8)
+SHARD_SEARCH_N = 4
+SHARD_REPS = 3
+
+
+class ShardClock:
+    """Host time inside one sharded scoring call, split into the host block
+    copies (``shard._dense_block``), the copies to the card (``shard.h2d``,
+    the stream drained after each), the partials (CUDA events from just
+    before each ``shard._partial_stats_dense`` to its end: the host's launch
+    path and the kernel, or the plain version) and the combine
+    (``shard._combine``, after a drain). Keeps the last block's inputs.
+    Installed only around the measured calls."""
+
+    NAMES = ("_dense_block", "h2d", "_partial_stats_dense", "_combine")
+
+    def __init__(self, torch, shard):
+        self.torch, self.shard = torch, shard
+        self._orig = {n: getattr(shard, n) for n in self.NAMES}
+        self.reset()
+
+    def reset(self):
+        self.block_s = self.h2d_s = self.combine_s = 0.0
+        self.events, self.last = [], None
+
+    def partials_ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+    def __enter__(self):
+        torch, o = self.torch, self._orig
+
+        def copying(fn, attr):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                setattr(self, attr, getattr(self, attr)
+                        + time.perf_counter() - t0)
+                return out
+            return wrapper
+
+        def partial(times_b, w_b, plans_b, impl):
+            self.last = (times_b, w_b, plans_b)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = o["_partial_stats_dense"](times_b, w_b, plans_b, impl)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        def combine(parts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = o["_combine"](parts)
+            self.combine_s += time.perf_counter() - t0
+            return out
+
+        self.shard._dense_block = copying(o["_dense_block"], "block_s")
+        self.shard.h2d = copying(o["h2d"], "h2d_s")
+        self.shard._partial_stats_dense = partial
+        self.shard._combine = combine
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.shard, name, fn)
+        return False
+
+
+def shard_dense_inputs(torch, dev):
+    """bench_fleet's dense size on the host: (K,) times and counts, (P, K)
+    int8 plans of n_sel = K/100 devices a row (row 0 empty), drawn on the
+    card from a seed."""
+    K, P = SHARD_DENSE_K, SHARD_DENSE_P
+    g = torch.Generator(device=dev).manual_seed(1700)
+    times = torch.rand(K, device=dev, generator=g) * 100.0 + 0.1
+    counts = torch.randint(0, 6, (K,), device=dev, generator=g)
+    plans = torch.zeros((P, K), dtype=torch.int8, device=dev)
+    for r0 in range(0, P, 1024):
+        keys = torch.rand((min(1024, P - r0), K), device=dev, generator=g)
+        plans[r0:r0 + 1024].scatter_(
+            1, keys.topk(K // 100, dim=1, sorted=False).indices, 1)
+        del keys
+    plans[0] = 0
+    out = (times.double().cpu().numpy(), counts.double().cpu().numpy(),
+           plans.cpu().numpy())
+    del plans
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_dense(torch, dev, smi: str) -> dict:
+    """(a) Dense scoring at K = 262,144, P = 4096 under ``emulate`` at each
+    N with the ``cuda`` and ``torch`` backends against single-lane
+    ``cuda``: scores within 1e-5, ``max`` and ``n`` exact, 2.1 once per
+    block, each call split by ``ShardClock`` (medians of ``SHARD_REPS``),
+    2.1 on each N's last block held to its plain version and timed alone
+    (N = 1's block is the whole plans)."""
+    import numpy as np
+
+    from repro_torch.core import scoring, shard
+    from repro_torch.kernels import sched_score as ss
+
+    times, counts, plans = shard_dense_inputs(torch, dev)
+    counts_c = counts - counts.mean()
+    kw = dict(alpha=4.0, beta=0.25, time_scale=3.0, fairness_scale=0.09,
+              delta_fairness=True)
+    coef = (kw["alpha"], kw["beta"], kw["time_scale"], kw["fairness_scale"],
+            kw["delta_fairness"])
+    reset_plan_stats_counts(ss)
+    t0 = time.perf_counter()
+    want_stats = scoring.plan_stats_cuda(times, counts_c, plans, device=dev)
+    single_s = time.perf_counter() - t0
+    want = scoring._score_from_stats(want_stats, counts_c, *coef)
+    want_t = np.where(want_stats[:, 0] > -1e29, want_stats[:, 0], -np.inf)
+    launches = {"single lane": ss.launches}
+    by_variant = dict(ss.launches_by_variant)
+    rows, last = [], None
+    for N in SHARD_COUNTS:
+        for backend in ("cuda", "torch"):
+            calls = []
+            with ShardClock(torch, shard) as clock:
+                for _ in range(SHARD_REPS):
+                    clock.reset()
+                    reset_plan_stats_counts(ss)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    stats = shard.plan_stats_sharded(
+                        times, counts_c, plans, "dense", N,
+                        executor="emulate", backend=backend, device=dev)
+                    got = scoring._score_from_stats(stats, counts_c, *coef)
+                    wall = time.perf_counter() - t0
+                    calls.append(dict(wall_ms=wall * 1e3,
+                                      host_block_ms=clock.block_s * 1e3,
+                                      h2d_ms=clock.h2d_s * 1e3,
+                                      partials_ms=clock.partials_ms(),
+                                      combine_ms=clock.combine_s * 1e3))
+                    if not (np.array_equal(stats[:, 0], want_t)
+                            and np.array_equal(stats[:, 1],
+                                               want_stats[:, 1])):
+                        raise AssertionError(f"N={N} {backend}: max or n "
+                                             "differs from the single lane")
+                    rel = float(np.max(np.abs(got - want) / np.maximum(
+                        np.abs(want), 1e-12)))
+                    if rel > 1e-5:
+                        raise AssertionError(f"N={N} {backend}: scores off "
+                                             f"by {rel} relative")
+                    n_launch = ss.launches
+                    if n_launch != (N if backend == "cuda" else 0):
+                        raise AssertionError(f"N={N} {backend}: 2.1 launched "
+                                             f"{n_launch} times")
+                    for v, n in ss.launches_by_variant.items():
+                        by_variant[v] += n
+                    launches[f"N={N} {backend}"] = (
+                        launches.get(f"N={N} {backend}", 0) + n_launch)
+            med = {k: statistics.median(c[k] for c in calls)
+                   for k in calls[0]}
+            row = dict(N=N, backend=backend, block=[
+                SHARD_DENSE_P, shard.shard_sizes(SHARD_DENSE_K, N)[0]],
+                scores_max_rel_diff=rel, max_and_n_exact=True,
+                launches_per_call=N if backend == "cuda" else 0, **med)
+            if backend == "cuda":
+                # 2.1 alone on the call's last block, held to its plain
+                # version (N = 1: the whole plans)
+                row["kernel"] = kernel_row(torch, ss, *clock.last)
+                if row["kernel"]["variant"] != "stream":
+                    raise AssertionError(f"N={N}: the last block picked "
+                                         f"{row['kernel']['variant']}")
+            rows.append(row)
+            del clock
+    return dict(card=smi, K=SHARD_DENSE_K, P=SHARD_DENSE_P,
+                n_sel=SHARD_DENSE_K // 100, plans_bytes=int(plans.nbytes),
+                executor="emulate", reps=SHARD_REPS,
+                single_lane_cuda_ms=single_s * 1e3, calls=rows,
+                launches=sum(launches.values()), launches_by_call=launches,
+                launches_by_variant=by_variant,
+                kernel=max((r["kernel"] for r in rows if "kernel" in r),
+                           key=lambda k: k["max_abs_err"]))
+
+
+def shard_index(torch, dev, smi: str) -> dict:
+    """(b) Index form at K = 1e6, P = 4096, n_sel = 10,000: candidates from
+    ``random_plan_indices_sharded`` on the card at each N (valid rows:
+    n_sel distinct available ids), seconds and peak device memory; the
+    sharded index scores within 1e-5 of the single lane's."""
+    import numpy as np
+
+    from repro_torch.core import scoring, shard
+
+    K, P, S = SHARD_INDEX_K, SHARD_INDEX_P, SHARD_INDEX_SEL
+    rng = np.random.default_rng(1701)
+    avail = rng.random(K) < 0.9
+    times = rng.uniform(0.1, 100.0, K)
+    counts = rng.integers(0, 6, K).astype(np.float64)
+    avail_t = torch.from_numpy(avail).to(dev)
+    kw = dict(alpha=4.0, beta=0.25, time_scale=3.0, fairness_scale=0.09,
+              delta_fairness=True)
+    rows = []
+    for N in SHARD_INDEX_COUNTS:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        idx = shard.random_plan_indices_sharded(
+            np.random.default_rng(N), avail, S, P, N, device=dev)
+        draw_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        ids = torch.from_numpy(idx).to(dev).long()
+        srt = ids.sort(dim=1).values
+        valid = (idx.shape == (P, S)
+                 and bool((srt[:, 1:] != srt[:, :-1]).all())
+                 and int(ids.min()) >= 0 and int(ids.max()) < K
+                 and bool(avail_t[ids].all()))
+        if not valid:
+            raise AssertionError(f"N={N}: invalid candidate rows")
+        del ids, srt
+        t0 = time.perf_counter()
+        got = scoring.score_plan_indices(times, counts, idx, backend="torch",
+                                         num_shards=N, device=dev, **kw)
+        score_s = time.perf_counter() - t0
+        want = scoring.score_plan_indices(times, counts, idx,
+                                          backend="torch", device=dev, **kw)
+        rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                           1e-12)))
+        if rel > 1e-5:
+            raise AssertionError(f"N={N}: index scores off by {rel}")
+        rows.append(dict(N=N, block=shard.shard_sizes(K, N)[0], valid=True,
+                         draw_s=draw_s, peak_bytes=int(peak),
+                         score_s=score_s, scores_max_rel_diff=rel))
+    return dict(card=smi, K=K, P=P, n_sel=S, executor="emulate",
+                draws=rows)
+
+
+class ShardedSearch:
+    """Runs every call of a search entry point of ``repro_torch.core.search``
+    with ``num_shards=n`` on ``devices`` (the one card named n times)."""
+
+    def __init__(self, search, name, n, devices):
+        self.search, self.name = search, name
+        self.n, self.devices = n, devices
+        self._orig = getattr(search, name)
+
+    def __enter__(self):
+        orig, n, devices = self._orig, self.n, self.devices
+
+        def sharded(*a, **kw):
+            return orig(*a, **dict(kw, num_shards=n, devices=devices))
+
+        setattr(self.search, self.name, sharded)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.search, self.name, self._orig)
+        return False
+
+
+def search_run(torch, scheduler: str, n: int, dev) -> dict:
+    """fleet-scale's fused ``scheduler`` on the card, its search split over
+    ``[dev] * n`` (n = 1: the single lane): the records, each decision's
+    plan, 2.1's launches by variant, BODS's candidate blocks by decision
+    and the last block's inputs to the statistics."""
+    from repro_torch.core import search
+    from repro_torch.experiment.presets import get_preset
+    from repro_torch.kernels import sched_score as ss
+
+    name = {"bods": "bods_acquire", "genetic": "ga_search",
+            "sa": "sa_search"}[scheduler]
+    spec = get_preset("fleet-scale", scheduler=scheduler)
+    exp = spec.build(device=str(dev))
+    blocks, stats_in = [], {}
+    cands_fn, dense_stats = search.bods_candidates, search._dense_stats
+
+    def keep_cands(*a, **kw):
+        out = cands_fn(*a, **kw)
+        blocks.append(out.clone())
+        return out
+
+    def keep_stats(times, counts_c, plans):
+        stats_in.update(times=times, counts_c=counts_c, plans=plans)
+        return dense_stats(times, counts_c, plans)
+
+    search.bods_candidates, search._dense_stats = keep_cands, keep_stats
+    try:
+        with ShardedSearch(search, name, n, [dev] * n), \
+                SearchLog(torch, search, name) as log:
+            reset_plan_stats_counts(ss)
+            t0 = time.perf_counter()
+            result = exp.run()
+            wall_s = time.perf_counter() - t0
+            launches, by_variant = ss.launches, dict(ss.launches_by_variant)
+    finally:
+        search.bods_candidates, search._dense_stats = cands_fn, dense_stats
+    check_records(result.records, spec.effective_n_sel(),
+                  spec.effective_num_devices())
+    per = max(len(blocks) // max(log.calls, 1), 1)
+    return dict(records=result.records, log=log, wall_s=wall_s,
+                launches=launches, by_variant=by_variant,
+                blocks=[torch.cat(blocks[i:i + per])
+                        for i in range(0, len(blocks), per)],
+                stats_in=stats_in)
+
+
+def shard_searches(torch, dev, smi: str) -> dict:
+    """(c) fleet-scale's fused SA, GA and BODS (512 candidates) split over
+    the one card named 4 times, against the single lane: identical plans
+    decision by decision (BODS also its candidate blocks, bit for bit), 2.1
+    once per block per BODS decision (held to its plain version on the last
+    block), ms per decision at both N."""
+    from repro_torch.kernels import sched_score as ss
+
+    out, single = {}, {}
+    for sched in ("sa", "genetic", "bods"):
+        one = search_run(torch, sched, 1, dev)
+        many = search_run(torch, sched, SHARD_SEARCH_N, dev)
+        single[sched] = one
+        identical_decisions(one["log"], many["log"],
+                            f"fused {sched}, N={SHARD_SEARCH_N} vs 1")
+        est_diff = compare_runs(one["records"], many["records"])
+        row = dict(decisions=one["log"].calls,
+                   ms_per_decision_n1=one["log"].seconds / one["log"].calls
+                   * 1e3,
+                   ms_per_decision_n4=many["log"].seconds / many["log"].calls
+                   * 1e3,
+                   plans_identical=True, max_est_cost_diff=est_diff)
+        if sched == "bods":
+            calls = many["log"].calls
+            if one["launches"] != calls or \
+                    many["launches"] != SHARD_SEARCH_N * calls:
+                raise AssertionError(
+                    f"BODS: 2.1 launched {one['launches']} and "
+                    f"{many['launches']} times for {calls} decisions")
+            if len(one["blocks"]) != calls or len(many["blocks"]) != calls \
+                    or not all(torch.equal(a, b) for a, b in
+                               zip(one["blocks"], many["blocks"])):
+                raise AssertionError("BODS: candidate blocks differ at N="
+                                     f"{SHARD_SEARCH_N}")
+            kernel = block_kernel_row(torch, ss, many["stats_in"])
+            if many["by_variant"].get(kernel["variant"]) != many["launches"]:
+                raise AssertionError(f"BODS launches by variant "
+                                     f"{many['by_variant']}")
+            row.update(candidate_blocks_identical=True,
+                       launches_n1=one["launches"],
+                       launches_by_variant_n1=one["by_variant"],
+                       launches_n4=many["launches"],
+                       launches_by_variant_n4=many["by_variant"],
+                       kernel=kernel)
+        out[sched] = row
+    return dict(card=smi, preset="fleet-scale", N=SHARD_SEARCH_N,
+                devices=f"[cuda:0] * {SHARD_SEARCH_N}", **out), single
+
+
+def host_ga_replayed(torch, spec, dev) -> dict:
+    """``spec`` (the host GA, ``scoring_backend="cuda"``) on the card with
+    every decision replayed at ``num_shards=1`` from the same inputs and
+    generator state: the records, the decisions, 2.1's launches in the run
+    and in the replays, each decision that differs with both plans'
+    Formula-2 costs (float64, numpy backend) and their margin, and, for
+    every population the run scores, the pairs of plans whose order the
+    sharded costs swap against the single lane's (``compared``): a GA
+    decision flips through its tournaments, so the near ties show there,
+    not in the margin between the two final plans."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.core import scoring
+    from repro_torch.kernels import sched_score as ss
+
+    exp = spec.build(device=str(dev))
+    sched = exp.engine.scheduler
+    cm = sched.cost_model
+    schedule = sched.schedule
+    cost_batch = cm.cost_batch
+    log = dict(decisions=0, replay_launches=0, flips=[], replay_s=0.0)
+    pairs = dict(calls=0, score_max_rel_diff=0.0, order_flips=0,
+                 max_single_gap_of_flipped=0.0, exact_ties_broken=0)
+
+    def compared(times, counts, plans, backend=None):
+        """The sharded costs, beside the single lane's on the same plans
+        (the plain ``torch`` backend: no launch): their largest relative
+        difference, and every pair of plans whose order they swap, with
+        the single lane's gap between the two."""
+        got = cost_batch(times, counts, plans, backend=backend)
+        if cm.num_shards == 1:
+            return got
+        t0 = time.perf_counter()
+        one = scoring.score_plans(
+            times, counts, plans, alpha=cm.alpha, beta=cm.beta,
+            time_scale=cm.time_scale, fairness_scale=cm.fairness_scale,
+            delta_fairness=cm.delta_fairness, backend="torch", device=dev)
+        swapped = (np.sign(got[:, None] - got[None, :])
+                   != np.sign(one[:, None] - one[None, :]))
+        gap = np.abs(one[:, None] - one[None, :])[swapped]
+        pairs["calls"] += 1
+        pairs["score_max_rel_diff"] = max(pairs["score_max_rel_diff"], float(
+            np.max(np.abs(got - one) / np.maximum(np.abs(one), 1e-12))))
+        pairs["order_flips"] += int(swapped.sum()) // 2
+        pairs["exact_ties_broken"] += int((gap == 0.0).sum()) // 2
+        if gap.size:
+            pairs["max_single_gap_of_flipped"] = max(
+                pairs["max_single_gap_of_flipped"], float(gap.max()))
+        log["replay_s"] += time.perf_counter() - t0
+        return got
+
+    cm.cost_batch = compared
+
+    def replayed(ctx):
+        state = copy.deepcopy(sched.rng.bit_generator.state)
+        plan = schedule(ctx)
+        after = copy.deepcopy(sched.rng.bit_generator.state)
+        est = sched.last_estimated_cost
+        sched.rng.bit_generator.state = state
+        n, before = cm.num_shards, ss.launches
+        cm.num_shards = 1
+        t0 = time.perf_counter()
+        try:
+            other = schedule(ctx)
+        finally:
+            cm.num_shards = n
+        log["replay_s"] += time.perf_counter() - t0
+        sched.last_estimated_cost = est
+        log["replay_launches"] += ss.launches - before
+        sched.rng.bit_generator.state = after
+        if not np.array_equal(plan, other):
+            c = scoring.score_plans(
+                ctx.expected_times, ctx.counts, np.stack([plan, other]),
+                alpha=cm.alpha, beta=cm.beta, time_scale=cm.time_scale,
+                fairness_scale=cm.fairness_scale,
+                delta_fairness=cm.delta_fairness, backend="numpy")
+            log["flips"].append(dict(
+                decision=log["decisions"], sharded_cost=float(c[0]),
+                single_cost=float(c[1]), margin=float(abs(c[0] - c[1])),
+                relative_margin=float(abs(c[0] - c[1])
+                                      / max(abs(c[1]), 1e-12))))
+        log["decisions"] += 1
+        return plan
+
+    sched.schedule = replayed
+    reset_plan_stats_counts(ss)
+    t0 = time.perf_counter()
+    result = exp.run()
+    wall_s = time.perf_counter() - t0
+    log["population"] = sched.population
+    return dict(result=result, wall_s=wall_s - log["replay_s"],
+                launches=ss.launches - log["replay_launches"],
+                by_variant=dict(ss.launches_by_variant),
+                generations=sched.generations, score_pairs=pairs, **log)
+
+
+def shard_spec(torch, dev, smi: str, single: dict) -> dict:
+    """(d) fleet-scale through ``ExperimentSpec.build/run`` with
+    ``fleet.num_shards`` 4 and "auto": the fused schedulers fall back to one
+    lane on one card (counted) and their records equal the single lane's
+    from (c); the host GA scores through 2.1 once per block, every decision
+    replayed at one shard, each flip printed with its cost margin."""
+    import dataclasses
+
+    from repro_torch.core import search, shard
+    from repro_torch.experiment.presets import get_preset
+
+    fused = {}
+    for sched in ("sa", "genetic", "bods"):
+        for n in (SHARD_SEARCH_N, "auto"):
+            spec = get_preset("fleet-scale", scheduler=sched)
+            spec = spec.replace(fleet=dataclasses.replace(spec.fleet,
+                                                          num_shards=n))
+            before = search.fallbacks
+            result = spec.run(device=str(dev))
+            est_diff = compare_runs(single[sched]["records"], result.records)
+            fused[f"{sched} num_shards={n}"] = dict(
+                resolved=spec.effective_num_shards(),
+                fallbacks=search.fallbacks - before,
+                records_equal_single_lane=True, max_est_cost_diff=est_diff)
+    base = get_preset("fleet-scale", scheduler="genetic",
+                      search_backend="host", scoring_backend="cuda")
+    sharded = base.replace(fleet=dataclasses.replace(
+        base.fleet, num_shards=SHARD_SEARCH_N))
+    run = host_ga_replayed(torch, sharded, dev)
+    decisions = run["decisions"]
+    per_call = SHARD_SEARCH_N * (run["generations"] + 1)
+    if run["launches"] != per_call * decisions or \
+            run["replay_launches"] != (run["generations"] + 1) * decisions:
+        raise AssertionError(
+            f"host GA: 2.1 launched {run['launches']} (+"
+            f"{run['replay_launches']} in the replays) for {decisions} "
+            "decisions")
+    check_records(run["result"].records, base.effective_n_sel(),
+                  base.effective_num_devices())
+    t0 = time.perf_counter()
+    single_run = base.run(device=str(dev))
+    single_s = time.perf_counter() - t0
+    a, b = single_run.records, run["result"].records
+    first = next((i for i, (x, y) in enumerate(zip(a, b))
+                  if list(x.device_ids) != list(y.device_ids)), None)
+    return dict(card=smi, preset="fleet-scale", fused=fused, host_ga=dict(
+        num_shards=SHARD_SEARCH_N, block=[
+            run["population"], shard.shard_sizes(
+                base.effective_num_devices(), SHARD_SEARCH_N)[0]],
+        decisions=decisions, wall_s=run["wall_s"], single_lane_wall_s=single_s,
+        launches=run["launches"], launches_per_decision=run["launches"]
+        / decisions, launches_by_variant=run["by_variant"],
+        replay_launches=run["replay_launches"], flips=run["flips"],
+        score_pairs=run["score_pairs"],
+        records_identical_to_single_lane=first is None,
+        first_differing_record=first))
+
+
+def phase_fleet_shard(torch, dev, smi: str) -> dict:
+    """Phase 13: fleet sharding on the card (see the module docstring).
+    Prints each part's line as it finishes."""
+    from repro_torch.core import search
+
+    t0 = time.perf_counter()
+    search.fallbacks = 0
+    dense = shard_dense(torch, dev, smi)
+    emit(dict(phase="fleet-shard-dense", **dense))
+    index = shard_index(torch, dev, smi)
+    emit(dict(phase="fleet-shard-index", **index))
+    searches, single = shard_searches(torch, dev, smi)
+    emit(dict(phase="fleet-shard-search", **searches))
+    spec = shard_spec(torch, dev, smi, single)
+    emit(dict(phase="fleet-shard-spec", **spec))
+    return dict(dense=dense, index=index, searches=searches, spec=spec,
+                seconds=time.perf_counter() - t0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's details here")
@@ -3370,6 +3943,7 @@ def main(argv=None) -> int:
     emit(dict(phase="service-kill9", **kill9))
     gym = phase_gym(torch)
     emit(dict(phase="gym", **gym))
+    fleet_shard = phase_fleet_shard(torch, dev, smi)
     at = next(r for r in kern["plan_stats"]
               if r["label"] == "genetic-fleet-scale")
     fc = next(r for r in fl_kern["scatter_add"]
@@ -3384,8 +3958,20 @@ def main(argv=None) -> int:
                   for path, n in service["launches_by_path"].items()},
                "gym quickstart warm-started (fused bods)":
                    gym["warm_bods"]["launches"],
-               "gym rlds-warmstart": gym["warm_rlds"]["plan_stats_launches"]}
+               "gym rlds-warmstart": gym["warm_rlds"]["plan_stats_launches"],
+               "fleet-shard dense scoring K=262,144 (13a)":
+                   fleet_shard["dense"]["launches"],
+               f"fleet-shard fused bods N={SHARD_SEARCH_N} (13c)":
+                   fleet_shard["searches"]["bods"]["launches_n4"],
+               "fleet-shard fused bods N=1 (13c)":
+                   fleet_shard["searches"]["bods"]["launches_n1"],
+               f"fleet-shard host genetic N={SHARD_SEARCH_N} (13d)":
+                   fleet_shard["spec"]["host_ga"]["launches"],
+               "fleet-shard host genetic replays N=1 (13d)":
+                   fleet_shard["spec"]["host_ga"]["replay_launches"]}
     gym_bods = gym["warm_bods"]
+    shard_rows = [fleet_shard["dense"]["kernel"],
+                  fleet_shard["searches"]["bods"]["kernel"]]
     kernels = [dict(
         name="plan_stats", route="cuda",
         source="src/repro_torch/kernels/csrc/sched_score.cu",
@@ -3397,16 +3983,24 @@ def main(argv=None) -> int:
         service_blocks={"bods": service["bods_block"],
                         "rescore": service["rescore_block"]},
         gym_bods_block=gym_bods["kernel"],
+        fleet_shard_blocks={"dense last block (13a)": shard_rows[0],
+                            "fused bods block (13c)": shard_rows[1]},
         max_abs_err=max([r["max_abs_err"] for r in kern["plan_stats"]]
                         + [r["kernel"]["max_abs_err"]
                            for r in [bods_fleet, gym_bods] + paper_bods]
                         + [service["bods_block"]["max_abs_err"],
-                           service["rescore_block"]["max_abs_err"]]),
+                           service["rescore_block"]["max_abs_err"]]
+                        + [r["max_abs_err"] for r in shard_rows]),
         ms=at["kernel_ms"], plain_ms=at["plain_ms"], h2d_ms=at["h2d_ms"],
         bound_ms=at["bound_ms"], bound_by=at["bound_by"], library_ms=None,
         launches_by_variant={
             v: n + sum(r["launches_by_variant"].get(v, 0)
                        for r in [bods_fleet, service, gym_bods] + paper_bods)
+            + sum(d.get(v, 0) for d in (
+                fleet_shard["dense"]["launches_by_variant"],
+                fleet_shard["searches"]["bods"]["launches_by_variant_n1"],
+                fleet_shard["searches"]["bods"]["launches_by_variant_n4"],
+                fleet_shard["spec"]["host_ga"]["launches_by_variant"]))
             for v, n in main_path["launches_by_variant"].items()},
         floor_ms=kern["floor_ms"], shapes=kern["plan_stats"],
         **variant_keys(at)), dict(
@@ -3466,7 +4060,8 @@ def main(argv=None) -> int:
                  fl_main=fl_main, lm_kernels=lm_kern, lm_serve=lm_serve,
                  lm_kernels_2=lm_kern2, lm_serve_2=lm_serve2,
                  schedulers=scheds, service=service,
-                 service_kill9=kill9, gym=gym), indent=1))
+                 service_kill9=kill9, gym=gym, fleet_shard=fleet_shard),
+            indent=1, default=str))
     print(json.dumps({"kernels": [{k: v for k, v in kr.items()
                                    if k != "shapes"} for kr in kernels]}))
     print(smi)

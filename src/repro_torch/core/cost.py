@@ -48,6 +48,11 @@ class CostModel:
     # Where the torch/cuda scoring backends run: the card unless the caller
     # asks for the CPU.
     device: str = "cuda"
+    # Fleet-axis shards for the scoring core and the fused searches (see
+    # repro_torch.core.shard): 1 = single lane; >1 splits the K axis of
+    # cost_batch/cost_indices and the parallel axes of SA/GA/BODS into
+    # blocks. Plumbed from FleetSpec.num_shards.
+    num_shards: int = 1
 
     # ---- Formula 5 ----
 
@@ -97,7 +102,7 @@ class CostModel:
             time_scale=self.time_scale, fairness_scale=self.fairness_scale,
             delta_fairness=self.delta_fairness,
             backend=backend if backend is not None else self.scoring_backend,
-            device=self.device)
+            device=self.device, num_shards=self.num_shards)
 
     def cost_indices(self, times: np.ndarray, counts: np.ndarray,
                      idx: np.ndarray, backend: Optional[str] = None) -> np.ndarray:
@@ -109,7 +114,7 @@ class CostModel:
             time_scale=self.time_scale, fairness_scale=self.fairness_scale,
             delta_fairness=self.delta_fairness,
             backend=backend if backend is not None else self.scoring_backend,
-            device=self.device)
+            device=self.device, num_shards=self.num_shards)
 
     # ---- Formula 8 (TotalCost): current job's candidate + other jobs' fixed plans ----
 

@@ -281,7 +281,8 @@ class BODSScheduler(SchedulerBase):
             num_candidates=self.num_candidates,
             n_mut=min(32, self.num_candidates // 4),
             local_search=self.local_search, gp_noise=self.gp_noise,
-            avail_idx=ctx.available_indices(), device=cm.device)
+            avail_idx=ctx.available_indices(), device=cm.device,
+            num_shards=cm.num_shards)
         self.last_estimated_cost = float(est)
         return plan
 

@@ -46,7 +46,8 @@ class GeneticScheduler(SchedulerBase):
                 delta_fairness=cm.delta_fairness,
                 population=self.population, generations=self.generations,
                 mutation_rate=self.mutation_rate,
-                avail_idx=ctx.available_indices(), device=cm.device)
+                avail_idx=ctx.available_indices(), device=cm.device,
+                num_shards=cm.num_shards)
             return self._score_plan(ctx, plan)
         pop = random_plans(self.rng, ctx.available, ctx.n_sel, self.population)
         for _ in range(self.generations):

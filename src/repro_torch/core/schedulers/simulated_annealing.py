@@ -48,7 +48,8 @@ class SimulatedAnnealingScheduler(SchedulerBase):
                 time_scale=cm.time_scale, fairness_scale=cm.fairness_scale,
                 delta_fairness=cm.delta_fairness, steps=self.steps,
                 chains=self.chains, t0=self.t0, cooling=self.cooling,
-                avail_idx=ctx.available_indices(), device=cm.device)
+                avail_idx=ctx.available_indices(), device=cm.device,
+                num_shards=cm.num_shards)
             return self._score_plan(ctx, plan)
         return self._schedule_host(ctx)
 

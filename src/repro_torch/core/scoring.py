@@ -18,15 +18,21 @@ over K devices with Formula 2:
   ``device="cuda"`` on a machine without a GPU it raises.
 
 ``backend="auto"`` picks numpy below a per-form element threshold and
-torch above. ``device`` is where the tensor backends run: ``"cuda"`` unless
-the caller asks for the CPU. The host-facing API is numpy in, numpy out;
-``score_dense``, ``score_index``, ``fairness_dense`` and ``round_time_dense``
-are the plain functions on tensors underneath.
+torch above; ``backend=None`` is the process default (``auto`` unless
+``set_default_backend`` says otherwise). ``num_shards`` > 1 splits the
+fleet (K) axis into blocks (``repro_torch.core.shard``): each block is
+reduced to the per-plan statistics (by the kernel under ``cuda``) and the
+blocks are combined on the host in float64. ``device`` is where the tensor
+backends run: ``"cuda"`` unless the caller asks for the CPU. The
+host-facing API is numpy in, numpy out; ``score_dense``, ``score_index``,
+``fairness_dense`` and ``round_time_dense`` are the plain functions on
+tensors underneath.
 """
 
 from __future__ import annotations
 
-from typing import Union
+import threading
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -39,21 +45,45 @@ VALID_BACKENDS = ("auto", "numpy", "torch", "cuda")
 # 4 higher). They are still to be measured on the H100.
 AUTO_NUMPY_MAX_DENSE = 1 << 18
 AUTO_NUMPY_MAX_INDEX = 1 << 20
+# Sharded fleets dispatch on the PER-SHARD size against this much smaller
+# floor: a fleet someone shards stays on the tensor path unless each
+# shard's problem is tiny. (Comparing the per-shard count against the
+# single-lane caps would make numpy more likely as shards are added.)
+MIN_SHARD_ELEMENTS = 1 << 12
 
 DeviceLike = Union[str, torch.device]
 
+_state = threading.local()
 
-def resolve_backend(backend: str, num_elements: int,
-                    form: str = "dense") -> str:
-    """Concrete backend for an ``num_elements``-sized scoring problem
-    (``form`` is ``dense`` for a (P, K) sweep, ``index`` for a (P, n_sel)
-    gather: ``auto`` uses a separate threshold per form)."""
+
+def set_default_backend(backend: str) -> None:
+    """This thread's backend for calls that pass ``backend=None``."""
     if backend not in VALID_BACKENDS:
         raise ValueError(f"backend {backend!r} not in {VALID_BACKENDS}")
-    if backend == "auto":
+    _state.backend = backend
+
+
+def get_default_backend() -> str:
+    return getattr(_state, "backend", "auto")
+
+
+def resolve_backend(backend: Optional[str], num_elements: int,
+                    form: str = "dense", num_shards: int = 1) -> str:
+    """Concrete backend for an ``num_elements``-sized scoring problem
+    (``form`` is ``dense`` for a (P, K) sweep, ``index`` for a (P, n_sel)
+    gather: ``auto`` uses a separate threshold per form). ``None`` is the
+    process default. With ``num_shards`` > 1 ``auto`` compares the
+    per-shard element count against ``MIN_SHARD_ELEMENTS`` instead."""
+    b = backend if backend is not None else get_default_backend()
+    if b not in VALID_BACKENDS:
+        raise ValueError(f"backend {b!r} not in {VALID_BACKENDS}")
+    if b == "auto":
+        if num_shards and num_shards > 1:
+            return ("numpy" if num_elements // num_shards
+                    <= MIN_SHARD_ELEMENTS else "torch")
         cap = AUTO_NUMPY_MAX_INDEX if form == "index" else AUTO_NUMPY_MAX_DENSE
         return "numpy" if num_elements <= cap else "torch"
-    return backend
+    return b
 
 
 def resolve_device(device: DeviceLike) -> torch.device:
@@ -205,19 +235,23 @@ def score_plans(times: np.ndarray, counts: np.ndarray, plans: np.ndarray,
                 alpha: float = 1.0, beta: float = 1.0,
                 time_scale: float = 1.0, fairness_scale: float = 1.0,
                 delta_fairness: bool = True,
-                backend: str = "auto",
-                device: DeviceLike = "cuda") -> np.ndarray:
+                backend: Optional[str] = None,
+                device: DeviceLike = "cuda",
+                num_shards: int = 1) -> np.ndarray:
     """Score P candidate plans: (K,) times, (K,) counts, (P, K) plans -> (P,).
 
-    ``backend`` is ``numpy | torch | cuda | auto``; ``device`` is where
-    ``torch`` and ``cuda`` run."""
+    ``backend`` is ``numpy | torch | cuda | auto`` (None: the process
+    default); ``device`` is where ``torch`` and ``cuda`` run. With
+    ``num_shards`` > 1 both take ``shard.plan_stats_sharded``: kernel 2.1
+    (``cuda``) or the plain partials (``torch``) on each block of the fleet
+    axis, combined on the host in float64."""
     times = np.asarray(times)
     counts = np.asarray(counts)
     plans = np.asarray(plans)
     if plans.ndim == 1:
         plans = plans[None, :]
     P, K = plans.shape
-    b = resolve_backend(backend, P * K)
+    b = resolve_backend(backend, P * K, num_shards=num_shards)
     if b == "numpy":
         return _score_numpy(times, counts, plans, alpha, beta,
                             time_scale, fairness_scale, delta_fairness)
@@ -225,6 +259,13 @@ def score_plans(times: np.ndarray, counts: np.ndarray, plans: np.ndarray,
     # backends never cancel two large sums (exact parity at fleet scale,
     # where cumulative counts grow without bound).
     counts_c = counts.astype(np.float64) - float(np.mean(counts))
+    if num_shards and num_shards > 1:
+        from repro_torch.core import shard
+
+        stats = shard.plan_stats_sharded(times, counts_c, plans, "dense",
+                                         num_shards, backend=b, device=device)
+        return _score_from_stats(stats, counts_c, alpha, beta,
+                                 time_scale, fairness_scale, delta_fairness)
     dev = resolve_device(device)
     if b == "torch":
         out = score_dense(_f32(times, dev), _f32(counts_c, dev),
@@ -242,14 +283,16 @@ def score_plan_indices(times: np.ndarray, counts: np.ndarray,
                        idx: np.ndarray, alpha: float = 1.0, beta: float = 1.0,
                        time_scale: float = 1.0, fairness_scale: float = 1.0,
                        delta_fairness: bool = True,
-                       backend: str = "auto",
-                       device: DeviceLike = "cuda") -> np.ndarray:
+                       backend: Optional[str] = None,
+                       device: DeviceLike = "cuda",
+                       num_shards: int = 1) -> np.ndarray:
     """Score P candidate plans given in INDEX form: (P, n_sel) device ids.
 
     P*n_sel gathered elements instead of a P*K dense sweep; semantically
     identical to ``score_plans`` on the scattered dense plans. The index
     form has no kernel: ``cuda`` runs the ``torch`` gather, as the
-    reference's ``pallas`` runs its ``jax`` gather."""
+    reference's ``pallas`` runs its ``jax`` gather. With ``num_shards`` > 1
+    each block of the fleet axis masks the gather to the ids it owns."""
     times = np.asarray(times)
     counts = np.asarray(counts)
     idx = np.asarray(idx)
@@ -261,7 +304,7 @@ def score_plan_indices(times: np.ndarray, counts: np.ndarray,
         if delta_fairness:
             return np.zeros(P, dtype=np.float64)
         return np.full(P, beta * float(np.var(counts)) / fairness_scale)
-    b = resolve_backend(backend, P * S, form="index")
+    b = resolve_backend(backend, P * S, form="index", num_shards=num_shards)
     if b == "numpy":
         t = times[idx].max(axis=1) / time_scale
         w = 2.0 * counts + 1.0
@@ -274,6 +317,13 @@ def score_plan_indices(times: np.ndarray, counts: np.ndarray,
             f = (c2 + wsum) / K - ((c1 + S) / K) ** 2
         return alpha * t + beta * f / fairness_scale
     counts_c = counts.astype(np.float64) - float(np.mean(counts))
+    if num_shards and num_shards > 1:
+        from repro_torch.core import shard
+
+        stats = shard.plan_stats_sharded(times, counts_c, idx, "index",
+                                         num_shards, backend=b, device=device)
+        return _score_from_stats(stats, counts_c, alpha, beta,
+                                 time_scale, fairness_scale, delta_fairness)
     dev = resolve_device(device)
     out = score_index(_f32(times, dev), _f32(counts_c, dev),
                       h2d(idx.astype(np.int64), dev),
@@ -299,7 +349,7 @@ def plan_stats_cuda(times: np.ndarray, counts: np.ndarray, plans: np.ndarray,
 
 
 def round_time_batch(times: np.ndarray, plans: np.ndarray,
-                     backend: str = "auto",
+                     backend: Optional[str] = None,
                      device: DeviceLike = "cuda") -> np.ndarray:
     """(P,) Formula-3 round time (masked max; empty plan -> 0). ``cuda``
     runs the ``torch`` reduction (no kernel of its own)."""
@@ -319,7 +369,7 @@ def round_time_batch(times: np.ndarray, plans: np.ndarray,
 
 def fairness_batch(counts: np.ndarray, plans: np.ndarray,
                    delta_fairness: bool = False,
-                   backend: str = "auto",
+                   backend: Optional[str] = None,
                    device: DeviceLike = "cuda") -> np.ndarray:
     """(P,) Formula-5 fairness (variance of counts + plan; optionally the
     per-round increment Var(c+v) - Var(c)). ``cuda`` runs the ``torch``

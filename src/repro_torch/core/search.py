@@ -1,4 +1,4 @@
-"""Fused scheduler search: the plan-SEARCH loops on tensors on one device.
+"""Fused scheduler search: the plan-SEARCH loops on tensors on the device.
 
 The host searchers step one proposal at a time through Python; here each
 decision runs as one program of tensor operations on ``device`` (the card
@@ -24,10 +24,24 @@ unless the caller asks for the CPU):
 
 Every noise array of SA and GA is drawn from the numpy ``rng`` in the
 reference's order, so the same seed gives the reference's plans. The BODS
-candidates are drawn from a ``torch.Generator`` on the block's device,
-seeded by one ``rng`` draw per decision (the reference draws the same
-integer for its ``jax.random`` key), so a decision is a pure function of
-the scheduler's seed; the stream differs between devices.
+candidates are drawn on the device from a counter-based hash: every draw
+(the weights w_time and w_fair, the Gumbel noise, the repair keys) is a
+pure function of (decision seed, candidate id, element), with the seed one
+``rng`` draw per decision (the reference draws the same integer for its
+``jax.random`` key). A decision is then a function of the scheduler's seed
+alone, and the candidate set does not depend on how the candidate axis is
+split.
+
+With ``num_shards`` > 1 each search splits its parallel axis over devices
+(one block per CUDA device, or the ``devices=`` a caller names): SA its
+chains, GA its population (each generation gathers the population and its
+costs, so selection and elitism see the global state), BODS its candidates
+(each block generates, featurizes (kernel 2.1 on the block's device) and
+scores its own candidates; the incumbent is the least posterior mean over
+all blocks, ties break to the lowest candidate id). The result is the
+single lane's. Without enough devices, when the rows do not split, or when
+a GA block is odd, a search falls back to one lane (``_usable_search_shards``,
+logged and counted in ``fallbacks``), as the reference does.
 
 Conventions (as in ``repro_torch.core.scoring``): times and counts are f32
 on the device; counts are mean-centred in f64 on the host first; sums of
@@ -35,15 +49,16 @@ weights over a plan accumulate in f64 and round to f32 once, so the CPU
 and the card agree bit for bit where no transcendental enters. Divisors
 are device tensors, never Python floats: CUDA divides by a host scalar as
 a multiply by its reciprocal, one bit off a true division. A decision
-copies its inputs to the device in two transfers (from pinned memory, not
-blocking the host) and reads back one result, its one synchronisation;
-the loops never read the device.
+copies its inputs to each block's device in two transfers (from pinned
+memory, not blocking the host) and reads back one result, its one
+synchronisation; the loops never read the device.
 """
 
 from __future__ import annotations
 
+import logging
 import math
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +69,55 @@ from repro_torch.monitoring.trace import span
 
 F32 = torch.float32
 F64 = torch.float64
+
+logger = logging.getLogger(__name__)
+
+#: Sharded searches that fell back to one lane since the last reset.
+fallbacks = 0
+
+
+def _usable_search_shards(num_shards, rows: int, pairs: bool = False,
+                          device: DeviceLike = "cuda",
+                          devices: Optional[Sequence] = None) -> int:
+    """Shard count a fused search can use for ``rows`` parallel units (SA
+    chains, GA population, BODS candidates): one lane when the process
+    lacks the devices (``devices`` names them, else one card per shard is
+    needed), when ``rows`` does not split evenly, or (``pairs``) when a
+    block would break the GA's consecutive-pair crossover. Falling back
+    changes nothing but the partitioning."""
+    global fallbacks
+    from repro_torch.core import shard
+
+    n = int(num_shards or 1)
+    if n <= 1:
+        return 1
+    reason = None
+    if devices is None:
+        if torch.device(device).type != "cuda":
+            reason = f"device {str(device)!r} is not a card"
+        elif n > shard.shard_capacity():
+            reason = (f"num_shards={n} exceeds torch.cuda.device_count()="
+                      f"{shard.shard_capacity()}")
+    if reason is None and rows % n:
+        reason = f"{rows} search rows do not split across {n} shards"
+    if reason is None and pairs and (rows // n) % 2:
+        reason = (f"per-shard block {rows // n} is odd (pair crossover "
+                  "needs even blocks)")
+    if reason is not None:
+        logger.debug("fused search falling back to single lane: %s", reason)
+        fallbacks += 1
+        return 1
+    return n
+
+
+def _search_devices(n: int, device: DeviceLike,
+                    devices: Optional[Sequence]) -> List[torch.device]:
+    """The device of each of the ``n`` blocks of a fused search."""
+    from repro_torch.core import shard
+
+    if n == 1:
+        return [resolve_device(device)]
+    return shard.block_devices(n, "shard_map", device, devices)
 
 
 # ---- host <-> device ------------------------------------------------------
@@ -178,11 +242,10 @@ def _uniform(gen, shape, device):
     return u.clamp_(min=torch.finfo(F32).tiny)
 
 
-def _gumbel_plans(gen, logits, avail, n_sel: int):
-    """(P, K) logits -> (P, K) bool plans: Gumbel top-k over the available
-    set (the device twin of ``plans.gumbel_topk_plans``)."""
-    g = -torch.log(-torch.log(_uniform(gen, logits.shape, logits.device)))
-    keys = torch.where(avail[None, :], logits + g, -torch.inf)
+def _repair_with(u, plans, avail, n_sel: int):
+    """``repair_plans_torch`` on given (P, K) U(0, 1) noise ``u``."""
+    keys = (plans & avail[None, :]).to(F32) + u
+    keys = torch.where(avail[None, :], keys, -torch.inf)
     return _topk_plans(keys, n_sel, avail)
 
 
@@ -195,10 +258,65 @@ def repair_plans_torch(gen, plans, avail, n_sel: int):
     pick the random extras to drop / random available devices to add.
     Idempotent on valid plans. Precondition: ``avail.sum() >= n_sel``.
     """
-    keys = (plans & avail[None, :]).to(F32) + _uniform(gen, plans.shape,
-                                                      plans.device)
-    keys = torch.where(avail[None, :], keys, -torch.inf)
-    return _topk_plans(keys, n_sel, avail)
+    return _repair_with(_uniform(gen, plans.shape, plans.device), plans,
+                        avail, n_sel)
+
+
+# ---- counter-based draws --------------------------------------------------
+#
+# The BODS candidates' noise, as a pure function of (seed, stream, candidate
+# id, element): a 32-bit state mixed by two multiply-xorshift rounds
+# (constants below 2^31, so every product of a 32-bit state stays below
+# 2^63 in int64, masked back to 32 bits after each step). The CPU and the
+# card compute the same integers, bit for bit.
+
+_M32 = 0xFFFFFFFF
+_MIX1, _MIX2 = 0x7FEB352D, 0x2C1B3C6D
+_GOLD = 0x61C88647        # 2^32 - 0x9E3779B9: the golden-ratio step
+
+# Streams of one decision's draws (the weights are elements 0 and 1 of
+# one stream).
+_WEIGHTS, _GUMBEL, _REPAIR = 1, 3, 4
+
+
+def _mix32_int(x: int) -> int:
+    """``_mix32`` on a Python integer."""
+    x &= _M32
+    x ^= x >> 16
+    x = (x * _MIX1) & _M32
+    x ^= x >> 15
+    x = (x * _MIX2) & _M32
+    return x ^ (x >> 16)
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """The 32-bit mixer on an int64 tensor of values in [0, 2^32), in
+    place."""
+    x ^= x >> 16
+    x.mul_(_MIX1).bitwise_and_(_M32)
+    x ^= x >> 15
+    x.mul_(_MIX2).bitwise_and_(_M32)
+    x ^= x >> 16
+    return x
+
+
+def hash_bits(seed: int, stream: int, ids: torch.Tensor,
+              width: int) -> torch.Tensor:
+    """(B, width) int64 32-bit draws for the (B,) int64 candidate ``ids``:
+    element k of row i is a pure function of (seed, stream, ids[i], k),
+    computed on ``ids``' device."""
+    key = _mix32_int(_mix32_int(seed) ^ ((stream * _GOLD) & _M32))
+    rows = _mix32((ids * _GOLD + key) & _M32)
+    cols = torch.arange(width, dtype=torch.int64, device=ids.device) * _GOLD
+    return _mix32((rows[:, None] + cols[None, :]) & _M32)
+
+
+def hash_uniform(seed: int, stream: int, ids: torch.Tensor,
+                 width: int) -> torch.Tensor:
+    """(B, width) float32 U(0, 1) draws from ``hash_bits``: the top 24 bits
+    plus one half, over 2^24, exact in float32 and never 0 or 1."""
+    bits = hash_bits(seed, stream, ids, width) >> 8
+    return (bits.to(F32) + 0.5) * (1.0 / (1 << 24))
 
 
 def _swap_into(idx, pos, cand):
@@ -302,8 +420,9 @@ def _temperatures(t0: float, cooling: float, steps: int) -> np.ndarray:
 
 def _sa_run(init, times, counts_c, pos, cand, accept_u, temps, alpha, beta,
             ts, fs, delta_fairness: bool):
-    """Anneal (C, n_sel) chains for ``steps`` iterations on the device;
-    returns the best plan any chain visited and its cost (tensors)."""
+    """Anneal a block of (C, n_sel) chains for ``steps`` iterations on the
+    device; returns each chain's best plan and cost (tensors). Chains never
+    interact, so the cross-chain argmin runs outside, over every block."""
     cost = _idx_cost_fn(times, counts_c, alpha, beta, ts, fs,
                         delta_fairness)
     idx = init
@@ -324,8 +443,7 @@ def _sa_run(init, times, counts_c, pos, cand, accept_u, temps, alpha, beta,
         best_c = torch.where(better, costs, best_c)
         # Cooling advances even on masked (collision / no-free-device)
         # steps, so the schedule stays consistent across chains.
-    ci = torch.argmin(best_c)
-    return _pick(best_i, ci), _pick(best_c, ci)
+    return best_i, best_c
 
 
 def sa_search(rng: np.random.Generator, times: np.ndarray, counts: np.ndarray,
@@ -334,92 +452,140 @@ def sa_search(rng: np.random.Generator, times: np.ndarray, counts: np.ndarray,
               steps: int, chains: int, t0: float, cooling: float,
               greedy_seed: bool = True,
               avail_idx: Optional[np.ndarray] = None,
-              device: DeviceLike = "cuda") -> np.ndarray:
+              device: DeviceLike = "cuda", num_shards: int = 1,
+              devices: Optional[Sequence] = None) -> np.ndarray:
     """One fused multi-chain SA decision -> (K,) bool plan.
 
     ``chains`` plans anneal in parallel for ``steps`` iterations; the best
     plan any chain ever visited is returned. All randomness is pre-drawn
     from ``rng`` on the host in the reference's order, so decisions follow
-    the scheduler's seed."""
+    the scheduler's seed. With ``num_shards`` > 1 the chain axis splits
+    over the devices; the result is the single lane's bit for bit."""
     avail, avail_idx = _avail_ids(available, avail_idx, n_sel)
     init = _init_indices(rng, avail_idx, n_sel, chains)
     if greedy_seed:
         init[0] = _greedy_indices(np.asarray(times), avail_idx, n_sel)
     pos, cand, u = _swap_noise(rng, avail_idx, steps, chains, n_sel)
-    dev = resolve_device(device)
+    n = _usable_search_shards(num_shards, chains, device=device,
+                              devices=devices)
+    devs = _search_devices(n, device, devices)
+    Cb = chains // n
+    temps = _temperatures(t0, cooling, int(steps))
     with span("sa_search", chains=int(chains), steps=int(steps)):
-        init_t, pos_t, cand_t = _to_device(dev, torch.int64, init, pos, cand)
-        times_t, counts_t, u_t, temps, coef = _to_device(
-            dev, F32, times, _center(counts), u,
-            _temperatures(t0, cooling, int(steps)),
-            [alpha, beta, time_scale, fairness_scale])
-        best_idx, _ = _sa_run(init_t, times_t, counts_t, pos_t, cand_t, u_t,
-                              temps, *coef.unbind(), bool(delta_fairness))
+        bests = []
+        for b, dev in enumerate(devs):
+            rows = slice(b * Cb, (b + 1) * Cb)
+            init_t, pos_t, cand_t = _to_device(
+                dev, torch.int64, init[rows], pos[:, rows], cand[:, rows])
+            times_t, counts_t, u_t, temps_t, coef = _to_device(
+                dev, F32, times, _center(counts), u[:, rows], temps,
+                [alpha, beta, time_scale, fairness_scale])
+            bests.append(_sa_run(init_t, times_t, counts_t, pos_t, cand_t,
+                                 u_t, temps_t, *coef.unbind(),
+                                 bool(delta_fairness)))
+        best_i = torch.cat([bi.to(devs[0]) for bi, _ in bests])
+        best_c = torch.cat([bc.to(devs[0]) for _, bc in bests])
+        best_idx = _pick(best_i, torch.argmin(best_c))
         plan = plan_from_indices(avail.shape[0], best_idx.cpu().numpy())
     return plan
 
 
 # ---- (b) fused genetic algorithm ------------------------------------------
 
-def _ga_children_block(pop, cost, ta, tb, cu, mu, mpos, mcand, n_sel: int,
-                       mutation_rate):
-    """The next GA generation (before elitism) from the (P, S) population
-    and its (P,) costs.
+def _ga_children_block(pop, cost, ta, tb, cu, mu, mpos, mcand, off: int,
+                       rows: int, n_sel: int, mutation_rate):
+    """Rows ``[off, off + rows)`` of the next GA generation (before
+    elitism), from the FULL (P, S) population and its (P,) costs but only
+    this block's slices of the crossover and mutation noise (``cu`` per
+    pair, the rest per row). The single lane calls it with ``off=0, rows=P``;
+    a shard with its even block, so no parent pair straddles two blocks.
 
-    Tournament selection (size 2), then slot-wise uniform crossover between
-    consecutive parent pairs: slot j of a child takes the OTHER parent's
-    j-th device iff the coin says swap and that device is absent from this
-    parent, so children stay duplicate-free and exactly n_sel-sized with
-    no repair step. The two children use complementary coins. An odd last
-    parent passes through. Mutation swaps one selected device for a free
-    one where the draw is below ``mutation_rate``."""
-    P = pop.shape[0]
+    Tournament selection (size 2) on the full arrays, then slot-wise
+    uniform crossover between consecutive parent pairs: slot j of a child
+    takes the OTHER parent's j-th device iff the coin says swap and that
+    device is absent from this parent, so children stay duplicate-free and
+    exactly n_sel-sized with no repair step. The two children use
+    complementary coins. An odd last parent passes through. Mutation swaps
+    one selected device for a free one where the draw is below
+    ``mutation_rate``."""
     parents = torch.where((cost[ta] <= cost[tb])[:, None], pop[ta], pop[tb])
-    pairs = P // 2
-    p0, p1 = parents[0:2 * pairs:2], parents[1:2 * pairs:2]
+    par_l = parents[off:off + rows]
+    pairs = rows // 2
+    p0, p1 = par_l[0:2 * pairs:2], par_l[1:2 * pairs:2]
     m0 = (p0[:, :, None] == p1[:, None, :]).any(dim=-1)
     m1 = (p1[:, :, None] == p0[:, None, :]).any(dim=-1)
     swap = cu < 0.5
     c0 = torch.where(swap & ~m1, p1, p0)
     c1 = torch.where(~swap & ~m0, p0, p1)
     children = torch.stack([c0, c1], dim=1).reshape(2 * pairs, n_sel)
-    if P != 2 * pairs:
-        children = torch.cat([children, parents[-1:]])
+    if rows != 2 * pairs:
+        children = torch.cat([children, par_l[-1:]])
     swapped, moved = _swap_into(children, mpos, mcand)
     apply = (mu < mutation_rate) & moved
     return torch.where(apply[:, None], swapped, children)
 
 
-def _ga_run(init, times, counts_c, tourn_a, tourn_b, cross_u, mut_u,
-            mut_pos, mut_cand, alpha, beta, ts, fs, mutation_rate,
-            delta_fairness: bool):
-    """All generations on the device; returns the best plan seen and its
-    cost (tensors)."""
-    cost_of = _idx_cost_fn(times, counts_c, alpha, beta, ts, fs,
-                           delta_fairness)
-    S = init.shape[1]
-    pop = init
-    best_i = init[0]
-    best_c = torch.full((), torch.inf, dtype=F32, device=init.device)
-    for g in range(tourn_a.shape[0]):
-        cost = cost_of(pop)
+class _GABlock(NamedTuple):
+    """One block of the GA population on its device: its rows of the
+    initial population, the decision's replicated inputs and tournaments,
+    its slices of the crossover (per pair) and mutation (per row) noise."""
+    init: torch.Tensor
+    times: torch.Tensor
+    counts_c: torch.Tensor
+    tourn_a: torch.Tensor
+    tourn_b: torch.Tensor
+    cross_u: torch.Tensor
+    mut_u: torch.Tensor
+    mut_pos: torch.Tensor
+    mut_cand: torch.Tensor
+    coef: torch.Tensor      # alpha, beta, ts, fs, mutation_rate
+
+
+def _ga_run(blocks, delta_fairness: bool):
+    """All generations over the population's blocks (``_GABlock``s, one a
+    device). Each generation every block gathers the population and its
+    costs (a no-op for the single lane), so selection and elitism see the
+    global state. Returns the best plan seen and its cost (tensors on the
+    first block's device)."""
+    devs = [b.init.device for b in blocks]
+    cost_of = [_idx_cost_fn(b.times, b.counts_c, *b.coef.unbind()[:4],
+                            delta_fairness) for b in blocks]
+    pop_l = [b.init for b in blocks]
+    Pb, S = pop_l[0].shape
+    state = [(b.init[0], torch.full((), torch.inf, dtype=F32, device=d))
+             for b, d in zip(blocks, devs)]
+
+    def gather(parts, dev):
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([x.to(dev) for x in parts])
+
+    def improve(pop, cost, best_i, best_c):
         i = torch.argmin(cost)
         ci = _pick(cost, i)
         better = ci < best_c
-        best_i = torch.where(better, _pick(pop, i), best_i)
-        best_c = torch.where(better, ci, best_c)
-        children = _ga_children_block(pop, cost, tourn_a[g], tourn_b[g],
-                                      cross_u[g], mut_u[g], mut_pos[g],
-                                      mut_cand[g], S, mutation_rate)
-        # Elitism: the best plan seen so far survives in slot 0.
-        children[0] = best_i
-        pop = children
-    cost = cost_of(pop)
-    i = torch.argmin(cost)
-    ci = _pick(cost, i)
-    better = ci < best_c
-    return (torch.where(better, _pick(pop, i), best_i),
-            torch.where(better, ci, best_c))
+        return (torch.where(better, _pick(pop, i), best_i),
+                torch.where(better, ci, best_c))
+
+    for g in range(blocks[0].tourn_a.shape[0]):
+        cost_l = [c(p) for c, p in zip(cost_of, pop_l)]
+        nxt = []
+        for sid, (b, dev) in enumerate(zip(blocks, devs)):
+            pop, cost = gather(pop_l, dev), gather(cost_l, dev)
+            state[sid] = improve(pop, cost, *state[sid])
+            children = _ga_children_block(
+                pop, cost, b.tourn_a[g], b.tourn_b[g], b.cross_u[g],
+                b.mut_u[g], b.mut_pos[g], b.mut_cand[g], sid * Pb, Pb, S,
+                b.coef[4])
+            if sid == 0:
+                # Elitism: the best plan seen so far survives in global
+                # slot 0, the first block's slot 0.
+                children[0] = state[0][0]
+            nxt.append(children)
+        pop_l = nxt
+    cost_l = [c(p) for c, p in zip(cost_of, pop_l)]
+    return improve(gather(pop_l, devs[0]), gather(cost_l, devs[0]),
+                   *state[0])
 
 
 def ga_search(rng: np.random.Generator, times: np.ndarray, counts: np.ndarray,
@@ -428,9 +594,12 @@ def ga_search(rng: np.random.Generator, times: np.ndarray, counts: np.ndarray,
               population: int, generations: int, mutation_rate: float,
               greedy_seed: bool = True,
               avail_idx: Optional[np.ndarray] = None,
-              device: DeviceLike = "cuda") -> np.ndarray:
+              device: DeviceLike = "cuda", num_shards: int = 1,
+              devices: Optional[Sequence] = None) -> np.ndarray:
     """One fused GA decision -> (K,) bool plan (index-form population,
-    noise pre-drawn from ``rng`` on the host in the reference's order)."""
+    noise pre-drawn from ``rng`` on the host in the reference's order).
+    With ``num_shards`` > 1 the population breeds data-parallel over the
+    devices, on the single lane's trajectory."""
     avail, avail_idx = _avail_ids(available, avail_idx, n_sel)
     P, G = population, generations
     init = _init_indices(rng, avail_idx, n_sel, P)
@@ -441,16 +610,25 @@ def ga_search(rng: np.random.Generator, times: np.ndarray, counts: np.ndarray,
     cross_u = rng.random((G, half, n_sel)).astype(np.float32)
     mut_u = rng.random((G, P)).astype(np.float32)
     mut_pos, mut_cand, _ = _swap_noise(rng, avail_idx, G, P, n_sel)
-    dev = resolve_device(device)
+    n = _usable_search_shards(num_shards, P, pairs=True, device=device,
+                              devices=devices)
+    devs = _search_devices(n, device, devices)
+    Pb = P // n
     with span("ga_search", population=int(P), generations=int(G)):
-        init_t, ta, tb, mpos, mcand = _to_device(
-            dev, torch.int64, init, tourn[0], tourn[1], mut_pos, mut_cand)
-        times_t, counts_t, cu, mu, coef = _to_device(
-            dev, F32, times, _center(counts), cross_u, mut_u,
-            [alpha, beta, time_scale, fairness_scale, mutation_rate])
-        best_idx, _ = _ga_run(init_t, times_t, counts_t, ta, tb, cu, mu,
-                              mpos, mcand, *coef.unbind(),
-                              bool(delta_fairness))
+        blocks = []
+        for b, dev in enumerate(devs):
+            rows = slice(b * Pb, (b + 1) * Pb)
+            pair_rows = slice(b * Pb // 2, (b + 1) * Pb // 2)
+            init_t, ta, tb, mpos, mcand = _to_device(
+                dev, torch.int64, init[rows], tourn[0], tourn[1],
+                mut_pos[:, rows], mut_cand[:, rows])
+            times_t, counts_t, cu, mu, coef = _to_device(
+                dev, F32, times, _center(counts), cross_u[:, pair_rows],
+                mut_u[:, rows],
+                [alpha, beta, time_scale, fairness_scale, mutation_rate])
+            blocks.append(_GABlock(init_t, times_t, counts_t, ta, tb, cu, mu,
+                                   mpos, mcand, coef))
+        best_idx, _ = _ga_run(blocks, bool(delta_fairness))
         plan = plan_from_indices(avail.shape[0], best_idx.cpu().numpy())
     return plan
 
@@ -567,36 +745,43 @@ def featurize_plans(times, counts_c, counts_zero, mu, plans, ts, fs,
     return feats, est_time, dfair
 
 
-def bods_candidates(gen: torch.Generator, times, counts_c, avail, mutants,
-                    num_candidates: int, n_sel: int, use_base: bool):
-    """The (P, K) bool candidate block, drawn on ``times``' device from
-    ``gen``. Layout as the reference's: rows [0, P/4) uniform Gumbel top-k,
-    the rest structured (availability logits -w_time * t_norm - w_fair *
-    c_norm, w_time in U(0, 6), w_fair in U(0, 4)); with ``use_base``, rows
-    [0, n_mut) are the repaired (n_mut, K) ``mutants`` instead."""
-    dev = times.device
-    P, K = num_candidates, times.shape[0]
-    n_rand = P // 4
+def bods_candidates(seed: int, lo: int, rows: int, times, counts_c, avail,
+                    mutants, num_candidates: int, n_sel: int,
+                    use_base: bool):
+    """The (rows, K) bool candidates with ids ``[lo, lo + rows)`` of a set
+    of ``num_candidates``, on ``times``' device. Every draw is a pure
+    function of (``seed``, candidate id, element) (``hash_uniform``), so a
+    row is the same whichever block holds it. Layout as the reference's:
+    ids [0, P/4) uniform Gumbel top-k, the rest structured (availability
+    logits -w_time * t_norm - w_fair * c_norm, w_time in U(0, 6), w_fair in
+    U(0, 4)); with ``use_base``, ids [0, n_mut) are the repaired (n_mut, K)
+    ``mutants`` instead."""
+    K = times.shape[0]
+    n_rand = num_candidates // 4
+    ids = torch.arange(lo, lo + rows, device=times.device)
     t_norm = _norm01_traced(times, avail)
     c_norm = _norm01_traced(counts_c, torch.ones_like(avail))
-    w_time = torch.rand(P, generator=gen, device=dev, dtype=F32) * 6.0
-    w_fair = torch.rand(P, generator=gen, device=dev, dtype=F32) * 4.0
-    structured = torch.arange(P, device=dev) >= n_rand
-    logits = torch.where(structured[:, None],
-                         -w_time[:, None] * t_norm[None, :]
-                         - w_fair[:, None] * c_norm[None, :], 0.0)
-    cands = _gumbel_plans(gen, logits, avail, n_sel)
-    if use_base:
-        cands[:mutants.shape[0]] = repair_plans_torch(gen, mutants, avail,
-                                                      n_sel)
+    w = hash_uniform(seed, _WEIGHTS, ids, 2)
+    w_time, w_fair = w[:, :1] * 6.0, w[:, 1:] * 4.0
+    logits = torch.where((ids >= n_rand)[:, None],
+                         -w_time * t_norm[None, :] - w_fair * c_norm[None, :],
+                         0.0)
+    g = -torch.log(-torch.log(hash_uniform(seed, _GUMBEL, ids, K)))
+    keys = torch.where(avail[None, :], logits + g, -torch.inf)
+    cands = _topk_plans(keys, n_sel, avail)
+    m = min(lo + rows, mutants.shape[0]) - lo if use_base else 0
+    if m > 0:
+        cands[:m] = _repair_with(hash_uniform(seed, _REPAIR, ids[:m], K),
+                                 mutants[lo:lo + m], avail, n_sel)
     return cands
 
 
-def bods_scores(cands, times, counts_c, counts_zero, mu, F, resid, valid,
-                inv_sd, alpha, beta, ts, fs, noise: float, n_sel: int,
-                delta_fairness: bool):
-    """A candidate block end to end: featurization, GP posterior, EI.
-    Returns ((P,) EI, (P,) estimated costs)."""
+def bods_posterior(cands, times, counts_c, counts_zero, mu, F, resid, valid,
+                   inv_sd, alpha, beta, ts, fs, noise: float, n_sel: int,
+                   delta_fairness: bool):
+    """A candidate block's featurization (kernel 2.1 on the block's
+    device) and GP posterior: ((P,) posterior mean, (P,) stddev, (P,)
+    estimated costs)."""
     feats, est_time, dfair = featurize_plans(
         times, counts_c, counts_zero, mu, cands, ts, fs, n_sel,
         delta_fairness)
@@ -605,6 +790,18 @@ def bods_scores(cands, times, counts_c, counts_zero, mu, F, resid, valid,
     chol, w, m = gp_fit(F, resid, valid, noise)
     mu_c, sigma = gp_posterior(chol, w, m, F, feats,
                                cand_est * _as_f32(inv_sd, dev))
+    return mu_c, sigma, cand_est
+
+
+def bods_scores(cands, times, counts_c, counts_zero, mu, F, resid, valid,
+                inv_sd, alpha, beta, ts, fs, noise: float, n_sel: int,
+                delta_fairness: bool):
+    """A candidate block end to end: featurization, GP posterior, EI
+    against the block's own plugin incumbent. Returns ((P,) EI, (P,)
+    estimated costs)."""
+    mu_c, sigma, cand_est = bods_posterior(
+        cands, times, counts_c, counts_zero, mu, F, resid, valid, inv_sd,
+        alpha, beta, ts, fs, noise, n_sel, delta_fairness)
     return ei_from_posterior(mu_c, sigma, mu_c.amin()), cand_est
 
 
@@ -617,7 +814,9 @@ def bods_acquire(rng: np.random.Generator, times: np.ndarray,
                  delta_fairness: bool, num_candidates: int, n_mut: int,
                  local_search: bool, gp_noise: float,
                  avail_idx: Optional[np.ndarray] = None,
-                 device: DeviceLike = "cuda") -> Tuple[np.ndarray, float]:
+                 device: DeviceLike = "cuda", num_shards: int = 1,
+                 devices: Optional[Sequence] = None
+                 ) -> Tuple[np.ndarray, float]:
     """One fused BODS decision: (chosen (K,) bool plan, its estimated cost).
 
     Candidate generation, featurization (kernel 2.1 on the device-resident
@@ -625,7 +824,11 @@ def bods_acquire(rng: np.random.Generator, times: np.ndarray,
     ring slicing, the residual normalization and the local-search mutant
     loop stay on the host. The inputs go over in two copies and the plan
     with its estimate comes back in one (the decision's one wait on the
-    device)."""
+    device). With ``num_shards`` > 1 the candidate axis splits over the
+    devices: each block generates, featurizes and scores its own
+    candidates, the incumbent is the least posterior mean of all blocks,
+    and the best EI wins, ties to the lowest candidate id: the single
+    lane's candidates and decision."""
     avail, avail_idx = _avail_ids(available, avail_idx, n_sel)
     sd = float(y[valid > 0].std()) + 1e-6 if valid.sum() else 1.0
     use_base = base_plan is not None and local_search
@@ -635,27 +838,41 @@ def bods_acquire(rng: np.random.Generator, times: np.ndarray,
     else:
         mutants = np.zeros((0, avail.shape[0]), dtype=bool)
     seed = int(rng.integers(0, 2**31 - 1))
-    dev = resolve_device(device)
+    P = int(num_candidates)
+    n = _usable_search_shards(num_shards, P, device=device, devices=devices)
+    devs = _search_devices(n, device, devices)
+    Pb = P // n
     K = avail.shape[0]
-    with span("bods_acquire", candidates=int(num_candidates),
-              mutants=int(n_mut)):
-        times_t, counts_t, mu_t, F_t, resid_t, valid_t, coef = _to_device(
-            dev, F32, times, _center(counts), mu, F,
-            (y - est) / sd * valid, valid,
-            [1.0 / sd, alpha, beta, time_scale, fairness_scale])
-        zero_t, avail_t, mutants_t = _to_device(
-            dev, torch.bool, np.asarray(counts) == 0, avail, mutants)
-        inv_sd, alpha_t, beta_t, ts_t, fs_t = coef.unbind()
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        cands = bods_candidates(gen, times_t, counts_t, avail_t, mutants_t,
-                                int(num_candidates), int(n_sel), use_base)
-        ei, cand_est = bods_scores(
-            cands, times_t, counts_t, zero_t, mu_t, F_t, resid_t, valid_t,
-            inv_sd, alpha_t, beta_t, ts_t, fs_t, gp_noise, int(n_sel),
-            bool(delta_fairness))
-        choice = torch.argmax(ei)
-        out = torch.cat([_pick(cands, choice).to(F32),
-                         _pick(cand_est, choice).view(1)]).cpu().numpy()
-    return out[:K] > 0.5, float(out[K])
-
+    with span("bods_acquire", candidates=P, mutants=int(n_mut)):
+        blocks = []
+        for b, dev in enumerate(devs):
+            times_t, counts_t, mu_t, F_t, resid_t, valid_t, coef = _to_device(
+                dev, F32, times, _center(counts), mu, F,
+                (y - est) / sd * valid, valid,
+                [1.0 / sd, alpha, beta, time_scale, fairness_scale])
+            zero_t, avail_t, mutants_t = _to_device(
+                dev, torch.bool, np.asarray(counts) == 0, avail, mutants)
+            cands = bods_candidates(seed, b * Pb, Pb, times_t, counts_t,
+                                    avail_t, mutants_t, P, int(n_sel),
+                                    use_base)
+            mu_c, sigma, cand_est = bods_posterior(
+                cands, times_t, counts_t, zero_t, mu_t, F_t, resid_t,
+                valid_t, *coef.unbind(), gp_noise, int(n_sel),
+                bool(delta_fairness))
+            blocks.append((cands, mu_c, sigma, cand_est))
+        home = devs[0]
+        best = torch.stack([mu_c.amin().to(home)
+                            for _, mu_c, _, _ in blocks]).amin()
+        wins = []
+        for cands, mu_c, sigma, cand_est in blocks:
+            ei = ei_from_posterior(mu_c, sigma, best.to(mu_c.device))
+            c = torch.argmax(ei)
+            wins.append(torch.cat([_pick(ei, c).view(1),
+                                   _pick(cand_est, c).view(1),
+                                   _pick(cands, c).to(F32)]).to(home))
+        # Max EI wins, ties to the lowest global candidate id (the single
+        # lane's first argmax): the blocks hold ascending ids, and argmax
+        # takes the first of equal values.
+        wins = torch.stack(wins)
+        out = _pick(wins, torch.argmax(wins[:, 0]))[1:].cpu().numpy()
+    return out[1:K + 1] > 0.5, float(out[0])

@@ -8,9 +8,11 @@
 ``preset --arg k=v`` feeds the preset factory (values parsed as JSON, bare
 strings allowed); ``--set k=v`` overrides ExperimentSpec fields on the
 materialized spec — top-level, or nested via a dotted key (``--set
-fleet.scoring_backend=cuda``). ``--device`` (default ``cuda``) is where the
-torch/cuda scoring backends and the ``real_fl`` runtime run; ``--device
-cpu`` runs without a card.
+fleet.scoring_backend=cuda``; ``--set fleet.num_shards=4`` splits the fleet
+axis of scoring and the fused searches into 4 blocks, one per card where
+there are 4, else run in turn on one; ``"auto"`` is one per card). ``--device``
+(default ``cuda``) is where the torch/cuda scoring backends and the
+``real_fl`` runtime run; ``--device cpu`` runs without a card.
 Spec and result JSON written by the reference CLI load here unchanged, and
 a saved result's ``spec`` block is itself a valid input to ``run``.
 
@@ -22,6 +24,12 @@ host genetic search whose population the kernel scores every generation:
   python -m repro_torch.experiment.cli preset fleet-scale \
       --arg scheduler=genetic --set search_backend=host \
       --set scoring_backend=cuda --run
+
+and the same with the fleet axis in 4 blocks, kernel 2.1 once per block:
+
+  python -m repro_torch.experiment.cli preset fleet-scale \
+      --arg scheduler=genetic --set search_backend=host \
+      --set scoring_backend=cuda --set fleet.num_shards=4 --run
 """
 
 from __future__ import annotations

@@ -24,8 +24,7 @@ spec field, so the reference's spec and result JSON load here unchanged;
 ``torch``/``cuda``.
 
 Axes the port does not run yet raise ``NotImplementedError`` naming their
-ROADMAP module: ``fleet.num_shards`` > 1 (7), and (10) the audio and VLM
-arch ids.
+ROADMAP module: (10) the audio and VLM arch ids.
 A language model under ``real_fl`` raises too: the reference's ``real_fl``
 trains only the CNN zoo.
 """
@@ -141,10 +140,11 @@ class CostSpec:
 
     def build(self, pool: DevicePool, taus: List[float], n_sel: int,
               scoring_backend: str = "auto",
-              device: str = "cuda") -> CostModel:
+              device: str = "cuda", num_shards: int = 1) -> CostModel:
         cm = CostModel(pool, alpha=self.alpha, beta=self.beta,
                        delta_fairness=self.delta_fairness,
-                       scoring_backend=scoring_backend, device=device)
+                       scoring_backend=scoring_backend, device=device,
+                       num_shards=num_shards)
         if self.calibrate:
             cm.calibrate(taus, n_sel=n_sel)
         return cm
@@ -162,8 +162,10 @@ class FleetSpec:
     ``search_backend`` selects the plan-SEARCH path of the searching
     schedulers (BODS/SA/genetic): ``fused`` (the default, the search loops
     on the cost model's device) or ``host`` (the sequential numpy loops);
-    ``num_shards`` None/1 = single lane, anything else is ROADMAP module 7
-    and raises.
+    ``num_shards`` splits the fleet (K) axis of scoring and the parallel
+    axes of the fused searches into blocks (``repro_torch.core.shard``):
+    None/1 = single lane, ``"auto"``/0 = one shard per CUDA device (1
+    without a card), capped at the fleet size.
     """
 
     num_devices: Optional[int] = None
@@ -308,13 +310,14 @@ class ExperimentSpec:
             return self.slo
         return None
 
-    def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for an axis this port does not run
-        yet (each names its ROADMAP module); nothing is quietly ignored."""
-        if self.fleet.num_shards not in (None, 1):
-            raise NotImplementedError(
-                f"fleet.num_shards={self.fleet.num_shards!r}: fleet sharding "
-                "(core/shard.py) is ROADMAP module 7, not ported yet")
+    def effective_num_shards(self) -> int:
+        """Resolved fleet-axis shard count (``fleet.num_shards``: None -> 1,
+        "auto"/0 -> one shard per CUDA device (1 without one), capped at
+        the fleet size)."""
+        from repro_torch.core import shard
+
+        return shard.resolve_num_shards(self.fleet.num_shards,
+                                        fleet_size=self.effective_num_devices())
 
     def _scheduler_params(self):
         import inspect
@@ -341,7 +344,6 @@ class ExperimentSpec:
         """Wire pool -> cost model -> scheduler -> runtime -> engine. The
         torch/cuda scoring backends and the runtime's tensor work run on
         ``device``."""
-        self.check_ported()
         jobs = [js.to_job_config(i) for i, js in enumerate(self.jobs)]
         pool_spec = self.pool
         if self.fleet.num_devices is not None:
@@ -352,7 +354,7 @@ class ExperimentSpec:
         cost_model = self.cost.build(
             pool, [float(j.local_epochs) for j in jobs], n_sel,
             scoring_backend=self.effective_scoring_backend(),
-            device=str(device))
+            device=str(device), num_shards=self.effective_num_shards())
         # scheduler_kwargs may override the default seed/cost_model wiring
         sched_kwargs = {
             "cost_model": cost_model, "seed": self.scheduler_seed,

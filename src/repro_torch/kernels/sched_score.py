@@ -149,9 +149,13 @@ def launch_variant(variant: str, times: torch.Tensor, weights: torch.Tensor,
     (P, 3) stats. Counts nothing (``plan_stats`` does)."""
     P, K = plans.shape
     out = torch.empty((P, 3), dtype=torch.float32, device=plans.device)
-    rc = _entry()(times.data_ptr(), weights.data_ptr(), plans.data_ptr(),
-                  out.data_ptr(), P, K, VARIANTS.index(variant),
-                  torch.cuda.current_stream(plans.device).cuda_stream)
+    # The C entry launches on (and sizes its grid for) the current device:
+    # make it the plans' card, which a fleet block need not be.
+    with torch.cuda.device(plans.device):
+        rc = _entry()(times.data_ptr(), weights.data_ptr(),
+                      plans.data_ptr(), out.data_ptr(), P, K,
+                      VARIANTS.index(variant),
+                      torch.cuda.current_stream(plans.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sched_score kernel ({variant}) launch failed: "
                            f"CUDA error {rc} at (P, K) = ({P}, {K})")

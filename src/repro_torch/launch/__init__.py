@@ -1,2 +1,2 @@
 """Serving steps and the continuous-batching decode loop of the LLM zoo
-(``steps``, ``serve``)."""
+(``steps``, ``serve``), and the fleet-sharding bootstrap (``bootstrap``)."""

@@ -7,8 +7,8 @@ route every token, bucket its k picks by expert into a capacity of
 ``C = ceil(T k / E * 1.25)`` slots each (T = B S tokens, idle serving slots
 included; overflow picks are dropped and weigh 0), run the grouped matmul
 (``kernels/ops.moe_gmm``) three times, and combine the weighted expert
-outputs per token in float32. The expert-parallel mesh path is ROADMAP
-module 7.
+outputs per token in float32. The expert-parallel mesh path comes with
+``launch/{mesh,sharding}.py`` (ROADMAP module 10.d).
 
 Routing follows ``lax.top_k``: the k largest softmax probabilities, the
 lower expert id first among equal ones (a stable descending sort; a plain

@@ -1,6 +1,7 @@
 """The CUDA kernels (plan scoring, compressed-FedAvg scatter-add, flash
 and decode attention, the MoE grouped matmul, the linear scan, RMSNorm)
-against their plain PyTorch versions, on the card. Marked
+against their plain PyTorch versions, on the card, and the fleet-sharded
+scoring and fused searches (module 7) against the single lane. Marked
 ``requires_cuda``: without a card (or nvcc) every test skips, decided
 inside the fixture. Run on a GPU machine with
 
@@ -804,3 +805,116 @@ def test_ei_scores_on_card_match_cpu(cuda):
     card = search.ei_scores(*(a.to(cuda) for a in args), 0.25).cpu()
     np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=1e-5,
                                atol=1e-6)
+
+
+# ---- fleet sharding (module 7) --------------------------------------------
+
+SHARD_KW = dict(alpha=4.0, beta=0.25, time_scale=3.0, fairness_scale=0.09,
+                delta_fairness=True)
+
+
+def shard_problem(K, P, seed=0):
+    from repro_torch.core.plans import random_plan_indices
+
+    rng = np.random.default_rng(seed)
+    times = rng.uniform(1.0, 100.0, K)
+    counts = rng.integers(0, 50, K).astype(np.float64)
+    avail = rng.random(K) < 0.8
+    n_sel = max(2, int(avail.sum()) // 4)
+    return times, counts, avail, n_sel, random_plan_indices(rng, avail,
+                                                            n_sel, P)
+
+
+def rel_diff(a, b):
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-12)))
+
+
+@pytest.mark.parametrize("form", ["dense", "index"])
+@pytest.mark.parametrize("N", [1, 3, 8])
+def test_cuda_sharded_scoring_matches_torch(cuda, N, form):
+    """Sharded ``cuda`` scoring (kernel 2.1 once per dense block) against
+    sharded ``torch`` (its plain version) on the card and on the CPU:
+    within 1e-5."""
+    from repro_torch.core import shard
+    from repro_torch.core.plans import indices_to_plans
+
+    times, counts, _, _, idx = shard_problem(4099, 33)
+    plans = indices_to_plans(idx, 4099) if form == "dense" else idx
+    cc = counts - counts.mean()
+    before = sched_score.launches
+    got = shard.plan_stats_sharded(times, cc, plans, form, N,
+                                   executor="emulate", backend="cuda",
+                                   device="cuda")
+    assert sched_score.launches == before + (N if form == "dense" else 0)
+    for dev in ("cuda", "cpu"):
+        want = shard.plan_stats_sharded(times, cc, plans, form, N,
+                                        executor="emulate", backend="torch",
+                                        device=dev)
+        np.testing.assert_array_equal(got[:, :2], want[:, :2])
+        np.testing.assert_allclose(got[:, 2], want[:, 2], rtol=1e-5,
+                                   atol=1e-5)
+    score = (scoring.score_plans if form == "dense"
+             else scoring.score_plan_indices)
+    a = score(times, counts, plans, backend="cuda", num_shards=N,
+              device="cuda", **SHARD_KW)
+    b = score(times, counts, plans, backend="numpy", **SHARD_KW)
+    assert rel_diff(a, b) < 1e-5
+
+
+def test_hash_draws_on_card_equal_cpu(cuda):
+    """The BODS candidates' counter-based draws are the CPU's bit for
+    bit."""
+    from repro_torch.core import search
+
+    ids = torch.arange(0, 4096, 7, dtype=torch.int64)
+    for stream in (1, 2, 3, 4):
+        a = search.hash_bits(2**31 - 2, stream, ids, 1001)
+        b = search.hash_bits(2**31 - 2, stream, ids.to(cuda), 1001)
+        assert torch.equal(a, b.cpu())
+        assert torch.equal(search.hash_uniform(5, stream, ids, 257),
+                           search.hash_uniform(5, stream, ids.to(cuda),
+                                               257).cpu())
+
+
+def test_sharded_searches_on_one_card_named_four_times(cuda):
+    """SA, GA and BODS split over ``[cuda] * 4`` decide as the single lane
+    on the card; BODS launches 2.1 once per block."""
+    from repro_torch.core import search
+    from repro_torch.core.devices import DevicePool
+
+    K, n_sel = 400, 12
+    pool = DevicePool.heterogeneous(K, 2, seed=1)
+    rng = np.random.default_rng(1)
+    counts = rng.integers(0, 8, K).astype(np.float64)
+    avail = np.ones(K, bool)
+    avail[rng.choice(K, K // 5, replace=False)] = False
+    times = pool.expected_times(0, 5.0).astype(np.float32)
+    devs = [cuda] * 4
+    for fn, knobs in ((search.sa_search, dict(steps=30, chains=8, t0=1.0,
+                                              cooling=0.97)),
+                      (search.ga_search, dict(population=16, generations=5,
+                                              mutation_rate=0.3))):
+        one = fn(np.random.default_rng(0), times, counts, avail, n_sel,
+                 **SHARD_KW, **knobs, device="cuda")
+        got = fn(np.random.default_rng(0), times, counts, avail, n_sel,
+                 **SHARD_KW, **knobs, device="cuda", num_shards=4,
+                 devices=devs)
+        np.testing.assert_array_equal(got, one)
+    L = 16
+    F = np.abs(rng.normal(size=(L, 6))).astype(np.float32) * 0.3
+    valid = (rng.random(L) < 0.6).astype(np.float32)
+    y = rng.normal(5.0, 1.0, L).astype(np.float32) * valid
+    base = np.zeros(K, bool)
+    base[np.flatnonzero(avail)[:n_sel]] = True
+    kw = dict(F=F, y=y, est=y * 0.9, valid=valid, base_plan=base, **SHARD_KW,
+              num_candidates=32, n_mut=8, local_search=True, gp_noise=0.25)
+    args = (times, counts, avail, pool.mu, n_sel)
+    one = search.bods_acquire(np.random.default_rng(3), *args,
+                              device="cuda", **kw)
+    before = sched_score.launches
+    got = search.bods_acquire(np.random.default_rng(3), *args,
+                              device="cuda", **kw, num_shards=4,
+                              devices=devs)
+    assert sched_score.launches == before + 4
+    np.testing.assert_array_equal(got[0], one[0])
+    assert got[1] == one[1]

@@ -167,11 +167,9 @@ def test_reference_result_json_replays(tmp_path):
     assert_records_identical(ref_replay.records, replay.records)
 
 
-# Each case keeps the id it had when the list also held module 8's and
-# module 9's axes.
+# Each case keeps the id it had when the list also held module 7's,
+# module 8's and module 9's axes.
 @pytest.mark.parametrize("change,module", [
-    pytest.param(dict(fleet={"num_shards": 2}), "module 7",
-                 id="change3-module 7"),
     pytest.param(dict(runtime="real_fl",
                       jobs=(JobSpec(name="lm", model="musicgen-medium"),)),
                  "module 10", id="change4-module 10"),
@@ -186,6 +184,27 @@ def test_axes_not_ported_raise(change, module):
         **change)
     with pytest.raises(NotImplementedError, match=module):
         spec.build(device="cpu")
+
+
+@pytest.mark.parametrize("num_shards", [2, "auto"])
+@pytest.mark.parametrize("scheduler,search", [
+    ("genetic", "host"), ("sa", "fused"), ("bods", "fused")])
+def test_module7_fleet_shards_build_and_run(num_shards, scheduler, search):
+    """What raised until module 7 was ported (``fleet.num_shards`` > 1) now
+    builds and runs: the cost model carries the resolved shard count (1
+    for "auto" without a card), and the records hold n_sel distinct
+    devices. tests/test_torch_shard.py holds them to the reference's."""
+    spec = presets.get_preset("quickstart", scheduler=scheduler,
+                              max_rounds=2).replace(
+        fleet={"num_shards": num_shards, "scoring_backend": "torch"},
+        search_backend=search)
+    exp = spec.build(device="cpu")
+    want = 2 if num_shards == 2 else max(torch.cuda.device_count(), 1)
+    assert exp.engine.cost_model.num_shards == want
+    records = exp.run().records
+    assert len(records) == 2 * len(spec.jobs)
+    for r in records:
+        assert np.unique(r.device_ids).size == spec.effective_n_sel()
 
 
 @pytest.mark.parametrize("change", [
@@ -320,6 +339,11 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch.core.search, repro_torch.optim.optimizers\n"
         "import repro_torch.gym, repro_torch.gym.cli\n"
         "import repro_torch.core.loss_estimation\n"
+        "import repro_torch.core.shard, repro_torch.launch.bootstrap\n"
+        "r = get_preset('quickstart', scheduler='genetic', max_rounds=2)"
+        ".replace(search_backend='host', scoring_backend='cuda',"
+        " fleet={'num_shards': 2}).run(device='cpu')\n"
+        "assert len(r.records) == 6, len(r.records)\n"
         "from repro_torch.gym import TrainConfig, default_stages, train_rlds\n"
         "train_rlds(default_stages(num_devices=(24,)), TrainConfig("
         "num_envs=2, rollout_len=2, iters=1), device='cpu')\n"

@@ -419,10 +419,10 @@ def test_bods_candidates_layout():
     base = torch.zeros(K, dtype=torch.bool)
     base[torch.nonzero(avail)[:n_sel, 0]] = True
     mutants = base[None].repeat(4, 1)
-    gen = torch.Generator().manual_seed(1)
-    for times in (torch.rand(K), torch.ones(K)):
-        cands = search.bods_candidates(gen, times, torch.zeros(K), avail,
-                                       mutants, P, n_sel, use_base=True)
+    for seed, times in ((1, torch.rand(K)), (2, torch.ones(K))):
+        cands = search.bods_candidates(seed, 0, P, times, torch.zeros(K),
+                                       avail, mutants, P, n_sel,
+                                       use_base=True)
         for row in cands.numpy():
             validate_plan(row, avail.numpy(), n_sel)
         np.testing.assert_array_equal(cands[:4].numpy(),
