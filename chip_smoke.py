@@ -47,7 +47,10 @@ non-zero with a traceback, and no phase's failure is caught.
    the kernel, of the other design that serves the shape
    (``scatter_add.serves``) held to the same tolerance, of the plain
    version and of one ``index_add_`` call (the library yardstick, never
-   called by the port), beside the bound.
+   called by the port), beside the bound. The stream "every entry on one
+   position" again from CROWDED_SEEDS seeds: each seed's ``atomic`` output
+   held to the plain version at the same limit, and the largest gap of
+   each side to the float64 sum of the same terms.
 5. fl-main — real federated training through ``ExperimentSpec.build(
    device="cuda").run()``: the ``real-fl-two-job`` preset (LeNet-5 + CNN-B,
    40 devices, greedy) for 3 rounds and one VGG16 job (100 devices,
@@ -230,6 +233,31 @@ non-zero with a traceback, and no phase's failure is caught.
    lane's gap between them. The kernels line counts (a)'s, (c)'s and
    (d)'s launches by path.
 
+14. lm-train — the LM train path (module 10.a) on the card; each part
+   prints one line with the card's name and power limit. (a) qwen3-1.7b
+   whole (28 layers, remat on) from phase 7's params, AdamW at lr 3e-4,
+   ``make_train_step`` with 2 microbatches on one ``synth_batch`` of 2 x
+   4096 tokens, 3 steps: flash attention (2.3) launched forward and again
+   in each remat recompute, 28 x 2 x 2 a step, all wgmma, inside autograd
+   (its backward is the autograd of its plain version); loss and grad norm
+   finite, the loss after the 3 updates below step 1's; step 1 against the same step with
+   every kernel on its plain version (loss, grad norm and the cosine of
+   the two parameter updates, TRAIN_*); seconds a step, tokens a second,
+   peak device memory and one more step under torch.profiler split by
+   stage (flash forward, attention backward, cross-entropy, optimizer,
+   matmul, other) with the card's idle share. (b) ``run_elastic`` over
+   ``TokenBatcher`` at qwen3-1.7b's reduced size, 20 steps, with and
+   without a failure injected at step 7: the final states equal bit for
+   bit; ``python -m repro_torch.launch.train --arch qwen3-1.7b --reduced
+   --steps 20`` (on the card by default) exits 0, and its last checkpoint
+   carried into the reference's layout (``convert``) matches the
+   manifest's keys, shapes and dtypes. (c) dbrx-132b's and hymba-1.5b's
+   reduced train steps raise ``NoKernelGradError`` under the kernels (the
+   MoE matmul and the scan have no backward pass); under
+   ``set_default_impl("ref")`` dbrx's (f32) trains, its loss and grad norm
+   within 1e-4 of the same step on the CPU. The kernels line counts (a)'s
+   flash launches beside phase 7's.
+
 The line before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
 them; the last line is ``{"ok": true, "device": {...}}``.
@@ -240,6 +268,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -727,6 +757,36 @@ def edge_streams(torch, dev):
     return out
 
 
+CROWDED_SEEDS = 20
+
+
+def crowded_gaps(torch, dev) -> dict:
+    """The edge stream "every entry on one position" (10 x 3,000 randn
+    entries onto one float) drawn from CROWDED_SEEDS seeds: each seed's
+    kernel output held to the plain version at SCATTER_TOL, and the gap of
+    each side to the float64 sum of the same terms, the max over seeds."""
+    from repro_torch.kernels import scatter_add as sa
+
+    T = sa.TILE
+    gaps = {"kernel": [], "plain": [], "kernel_vs_plain": []}
+    for seed in range(CROWDED_SEEDS):
+        g = torch.Generator(device=dev).manual_seed(7700 + seed)
+        vals = torch.randn((10, 3000), device=dev, generator=g)
+        w = torch.rand(10, device=dev, generator=g) + 0.1
+        idx = torch.full((10, 3000), T + 77, dtype=torch.int64, device=dev)
+        got = sa.launch_variant("atomic", vals, idx, w, 4 * T)
+        exp = sa.scatter_add_ref(vals, idx, w, 4 * T)
+        exact = float((vals.double() * w.double()[:, None]).sum())
+        gaps["kernel_vs_plain"].append(check_close(
+            got, exp, f"scatter_add every entry on one position, seed "
+            f"{7700 + seed}"))
+        gaps["kernel"].append(abs(float(got[T + 77]) - exact))
+        gaps["plain"].append(abs(float(exp[T + 77]) - exact))
+    return dict(seeds=CROWDED_SEEDS, tol=SCATTER_TOL,
+                **{f"max_{k}_gap": max(v) for k, v in gaps.items()},
+                **{f"{k}_gaps": v for k, v in gaps.items()})
+
+
 def scatter_bound(n, k, idx_bytes, size):
     nbytes = n * k * (4 + idx_bytes) + 4 * n + 4 * size
     ops = 2 * n * k                                  # multiply + add each
@@ -806,7 +866,7 @@ def phase_fl_kernels(torch, dev) -> dict:
                          other_variant=other, other_ms=other_ms))
     del cases
     torch.cuda.empty_cache()
-    return {"scatter_add": rows}
+    return {"scatter_add": rows, "crowded": crowded_gaps(torch, dev)}
 
 
 # ---- phase 5 -------------------------------------------------------------
@@ -1413,6 +1473,19 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
+def busy_ms_of(spans) -> float:
+    """ms of the union of (start, end) intervals in us."""
+    busy_us, last = 0.0, None
+    for start, end in sorted(spans):
+        if last is None or start > last:
+            busy_us += end - start
+            last = end
+        elif end > last:
+            busy_us += end - last
+            last = end
+    return busy_us / 1e3
+
+
 def device_split(torch, fn, calls: int) -> dict:
     """``calls`` calls of ``fn`` under torch.profiler: host wall time (ending
     in a synchronise), the device's busy time (the union of its kernel and
@@ -1438,15 +1511,7 @@ def device_split(torch, fn, calls: int) -> dict:
         cls = kernel_class(e.name)
         by_class[cls] = by_class.get(cls, 0.0) + (end - start) / 1e3
         launches += 1
-    busy_us, last = 0.0, None
-    for start, end in sorted(spans):
-        if last is None or start > last:
-            busy_us += end - start
-            last = end
-        elif end > last:
-            busy_us += end - last
-            last = end
-    busy_ms = busy_us / 1e3
+    busy_ms = busy_ms_of(spans)
     return dict(calls=calls, wall_ms=wall_ms, device_events=launches,
                 device_busy_ms=busy_ms if spans else None,
                 device_idle_share=(1.0 - busy_ms / wall_ms) if spans else None,
@@ -1478,7 +1543,9 @@ def check_f32_agree(name, d):
                              f"{d['max_abs_logit']})")
 
 
-def phase_lm_serve(torch, dev) -> dict:
+def phase_lm_serve(torch, dev, keep: dict) -> dict:
+    """Phase 7; ``keep["qwen3_params"]`` gets the f32 params, moved to the
+    host, for phase 14."""
     from repro_torch.config.registry import get_arch
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -1611,6 +1678,10 @@ def phase_lm_serve(torch, dev) -> dict:
     for name, d in (("bf16 prefill", bf16_prefill),
                     ("bf16 decode", bf16_decode)):
         check_bf16_agree(name, d)
+    from repro_torch.tree import tree_map
+
+    keep["qwen3_params"] = tree_map(lambda t: t.cpu(), params)
+    del params, cparams
     torch.cuda.empty_cache()
     served = sum(len(t) for t in res.tokens)
     return dict(
@@ -3882,6 +3953,391 @@ def phase_fleet_shard(torch, dev, smi: str) -> dict:
                 seconds=time.perf_counter() - t0)
 
 
+# ---- phase 14 ------------------------------------------------------------
+
+TRAIN_BATCH = (2, 4096)        # (global batch, seq) of the full-width steps
+TRAIN_MICROBATCHES = 2
+TRAIN_STEPS = 3
+TRAIN_LR = 3e-4
+# Step 1 on the card against the same step with every kernel on its plain
+# version (bf16 compute): the loss's and the grad norm's relative gaps and
+# the cosine of the two parameter updates.
+# Set from a first run of this phase (NVIDIA H100 80GB HBM3, 700 W): gaps
+# of 1.4e-6 and 6.4e-4, a cosine of 0.9891. AdamW's first update is about
+# lr times the sign of the gradient, so each entry whose sign the two bf16
+# paths flip costs twice its share of the cosine: 0.989 is about 0.5% of
+# the entries.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GNORM_RTOL = 5e-3
+TRAIN_UPDATE_COS = 0.98
+ELASTIC_STEPS = 20
+ELASTIC_FAIL_AT = 7
+ELASTIC_SAVE_EVERY = 5
+GUARD_LOSS_RTOL = 1e-4         # dbrx (reduced, f32) under "ref": card vs CPU
+TRAIN_TIMEOUT_S = 300          # the `python -m repro_torch.launch.train` run
+
+
+TRAIN_RANGES = ("train/forward_backward", "train/clip", "train/optimizer")
+
+
+def train_bucket(e) -> str:
+    """The stage of a profiled CPU op that launched kernels, from its own
+    and its parents' names; None where no stage range encloses it."""
+    while e is not None:
+        name = e.name
+        if "_FlashBackward" in name:
+            return "attention backward"
+        if name in ("train/clip", "train/optimizer"):
+            return "optimizer"
+        if name in ("aten::logsumexp", "aten::gather") or \
+                "LogsumexpBackward" in name or "GatherBackward" in name:
+            return "cross-entropy"
+        e = e.cpu_parent
+    return None
+
+
+def train_split(torch, fn) -> dict:
+    """One call of ``fn`` (a train step) under torch.profiler: wall ms (the
+    profiler's overhead included), the device's busy ms (the union of its
+    kernel intervals) and device ms by stage: flash forward (forward and
+    remat recompute), attention backward (the autograd of the plain
+    version), cross-entropy (logsumexp and the label gather, forward and
+    backward), optimizer (clip and update), matmul and other; by kernel
+    class over every kernel; and the kernels the profiler linked to no CPU
+    op. The idle share is the caller's, against an unprofiled step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, by_stage, by_class, by_name, linked = [], {}, {}, {}, {}
+    for e in prof.events():
+        if getattr(e, "is_user_annotation", False) or e.name in TRAIN_RANGES:
+            continue  # a record_function range drawn on the card's timeline
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            cls = kernel_class(e.name)
+            by_class[cls] = by_class.get(cls, 0.0) + ms
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+            continue
+        for k in e.kernels:
+            stage = train_bucket(e)
+            if stage is None:
+                cls = kernel_class(k.name)
+                stage = {"flash_attention": "flash forward",
+                         "matmul": "matmul"}.get(cls, "other")
+            by_stage[stage] = by_stage.get(stage, 0.0) + k.duration / 1e3
+            linked[k.name] = linked.get(k.name, 0.0) + k.duration / 1e3
+    # device time the profiler linked to no CPU op, by kernel name
+    unlinked = sorted(((n, t - linked.get(n, 0.0)) for n, t in by_name.items()),
+                      key=lambda nt: -nt[1])[:8]
+    busy_ms = busy_ms_of(spans)
+    return dict(profiled_wall_ms=wall_ms, device_events=len(spans),
+                device_busy_ms=busy_ms if spans else None,
+                device_ms_by_stage={k: v for k, v in sorted(
+                    by_stage.items(), key=lambda kv: -kv[1])},
+                device_ms_by_class={k: v for k, v in sorted(
+                    by_class.items(), key=lambda kv: -kv[1])},
+                unlinked_ms_top={n[:80]: t for n, t in unlinked if t > 0})
+
+
+def train_full_width(torch, dev, smi: str, host_params) -> dict:
+    """(a): qwen3-1.7b whole (remat on) from phase 7's params, AdamW,
+    TRAIN_STEPS steps on one synth_batch of TRAIN_BATCH in
+    TRAIN_MICROBATCHES microbatches; step 1 first under the plain
+    versions."""
+    from repro_torch.config.base import (OptimizerConfig, ShapeConfig,
+                                         TrainConfig)
+    from repro_torch.config.registry import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step, synth_batch
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_arch("qwen3-1.7b"), remat=True)
+    L = cfg.num_layers
+    B, S = TRAIN_BATCH
+    step, opt_init = make_train_step(cfg, TrainConfig(
+        optimizer=OptimizerConfig(name="adamw", lr=TRAIN_LR),
+        microbatches=TRAIN_MICROBATCHES))
+    batch = synth_batch(cfg, ShapeConfig("train", S, B, "train"), seed=0,
+                        device=dev)
+    params = tree_map(lambda t: t.to(dev), host_params)
+    torch.cuda.synchronize()
+
+    # Step 1 with every kernel on its plain version: its update, on the host.
+    ops.set_default_impl("ref")
+    try:
+        t0 = time.perf_counter()
+        p_ref, o_ref, m_ref = step(params, opt_init(params), batch)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+    finally:
+        ops.set_default_impl("cuda")
+    ref_loss, ref_gnorm = float(m_ref["loss"]), float(m_ref["grad_norm"])
+    u_ref = [(a - b).cpu() for a, b in zip(tree_leaves(p_ref),
+                                           tree_leaves(params))]
+    del p_ref, o_ref, m_ref
+    torch.cuda.empty_cache()
+
+    # The main path, flash's counts at 0 just before and read just after.
+    opt_state = opt_init(params)
+    fa.launches = 0
+    fa.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
+    losses, gnorms, step_s, step_peak_gb = [], [], [], []
+    p0 = params
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        step_s.append(time.perf_counter() - t0)
+        step_peak_gb.append(torch.cuda.max_memory_allocated(dev) / 1e9)
+        if i == 0:
+            dot = nu = nr = 0.0
+            for a, b, r in zip(tree_leaves(params), tree_leaves(p0), u_ref):
+                u = a - b
+                r = r.to(dev)
+                dot += float(torch.sum(u * r, dtype=torch.float64))
+                nu += float(torch.sum(u * u, dtype=torch.float64))
+                nr += float(torch.sum(r * r, dtype=torch.float64))
+            del p0, u, r
+            cos = dot / max((nu * nr) ** 0.5, 1e-300)
+    launches = fa.launches
+    variants = dict(fa.launches_by_variant)
+    peak_gb = max(step_peak_gb)
+    del u_ref
+    with torch.no_grad():  # the loss after the last update
+        final_loss = float(lm_loss(cfg, params, batch))
+    # Where a step's time goes (one more step under the profiler, after the
+    # counted run).
+    state = {"p": params, "o": opt_state}
+
+    def one():
+        state["p"], state["o"], _ = step(state["p"], state["o"], batch)
+
+    split = train_split(torch, one)
+    if split["device_busy_ms"] is not None:
+        split["device_idle_share"] = 1.0 - split["device_busy_ms"] / (
+            statistics.median(step_s) * 1e3)
+    del state, params, opt_state, batch
+    torch.cuda.empty_cache()
+    expected = L * 2 * TRAIN_MICROBATCHES * TRAIN_STEPS
+    loss_gap = abs(losses[0] - ref_loss) / abs(ref_loss)
+    gnorm_gap = abs(gnorms[0] - ref_gnorm) / abs(ref_gnorm)
+    faults = []
+    if launches != expected or variants["wgmma"] != launches:
+        faults.append(f"flash launched {launches} times in {TRAIN_STEPS} "
+                      f"train steps ({variants}), expected {expected}, all "
+                      "wgmma")
+    if not all(math.isfinite(x) for x in losses + gnorms + [final_loss]):
+        faults.append(f"non-finite loss or grad norm: {losses}, {gnorms}")
+    if not final_loss < losses[0]:
+        faults.append(f"the loss did not fall over {TRAIN_STEPS} steps on "
+                      f"one batch: {losses} then {final_loss}")
+    if not (loss_gap <= TRAIN_LOSS_RTOL and gnorm_gap <= TRAIN_GNORM_RTOL
+            and cos >= TRAIN_UPDATE_COS):
+        faults.append(f"step 1 against the plain versions: loss {losses[0]} "
+                      f"vs {ref_loss}, grad norm {gnorms[0]} vs {ref_gnorm}, "
+                      f"update cosine {cos}")
+    tokens = B * S
+    out = dict(
+        arch=cfg.name, params=cfg.param_count(), batch=B, seq=S,
+        microbatches=TRAIN_MICROBATCHES, remat=True, optimizer="adamw",
+        lr=TRAIN_LR, losses=losses, final_loss=final_loss,
+        grad_norms=gnorms, step_s=step_s,
+        s_per_step=statistics.median(step_s),
+        tokens_per_s=tokens / statistics.median(step_s),
+        peak_memory_gb=peak_gb, step_peak_memory_gb=step_peak_gb,
+        flash_launches=launches,
+        flash_launches_per_step=launches / TRAIN_STEPS,
+        flash_launches_by_variant=variants,
+        vs_plain=dict(ref_step_s=ref_s, ref_loss=ref_loss,
+                      ref_grad_norm=ref_gnorm, loss_rel_gap=loss_gap,
+                      grad_norm_rel_gap=gnorm_gap, update_cosine=cos,
+                      limits=dict(loss=TRAIN_LOSS_RTOL,
+                                  grad_norm=TRAIN_GNORM_RTOL,
+                                  cosine=TRAIN_UPDATE_COS)),
+        profile=split, nvidia_smi=smi)
+    if faults:  # print what was measured, then fail
+        emit(dict(phase="lm-train (a) failed", **out))
+        raise AssertionError("; ".join(faults))
+    return out
+
+
+def train_elastic(torch, dev, smi: str, tmp: Path) -> dict:
+    """(b): run_elastic over TokenBatcher at qwen3-1.7b's reduced size on
+    the card, ELASTIC_STEPS steps, with and without a failure at
+    ELASTIC_FAIL_AT: the final states equal bit for bit. Then the training
+    CLI at the same size, and one of its checkpoints restored and carried
+    into the reference's layout (checked against the manifest)."""
+    import importlib
+
+    from repro_torch import convert
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.config.base import OptimizerConfig, TrainConfig
+    from repro_torch.launch.elastic import (ElasticConfig, FailureInjector,
+                                            run_elastic)
+    from repro_torch.launch.serve import REDUCED_MODULES
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import TokenBatcher
+    from repro_torch.models.transformer import lm_init
+    from repro_torch.tree import tree_flatten_with_paths, tree_leaves
+    import numpy as np
+
+    cfg = importlib.import_module(REDUCED_MODULES["qwen3-1.7b"]).reduced()
+    step, opt_init = make_train_step(cfg, TrainConfig(
+        optimizer=OptimizerConfig(name="adamw", lr=TRAIN_LR)))
+
+    def make_state():
+        params = lm_init(cfg, seed=0, device=dev)
+        return (params, opt_init(params))
+
+    def step_fn(state, batch):
+        p, o, m = step(*state, batch)
+        return (p, o), m
+
+    runs = {}
+    for name, fail in (("clean", ()), ("failed", (ELASTIC_FAIL_AT,))):
+        inj = FailureInjector(fail_at_steps=fail)
+        losses = []
+        t0 = time.perf_counter()
+        out = run_elastic(
+            make_state=make_state, step_fn=step_fn,
+            batch_iter=TokenBatcher(cfg, 8, 128, device=dev),
+            num_steps=ELASTIC_STEPS,
+            config=ElasticConfig(save_every=ELASTIC_SAVE_EVERY,
+                                 checkpoint_dir=str(tmp / name)),
+            injector=inj, on_step=lambda i, m: losses.append(m["loss"]))
+        runs[name] = dict(out=out, losses=losses, injected=inj.injected,
+                          wall_s=time.perf_counter() - t0)
+    a, b = runs["clean"]["out"], runs["failed"]["out"]
+    if b["restarts"] != 1 or runs["failed"]["injected"] != [ELASTIC_FAIL_AT]:
+        raise AssertionError(f"run_elastic: {b['restarts']} restarts, "
+                             f"injected {runs['failed']['injected']}")
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(a["state"]),
+                                                  tree_leaves(b["state"])))
+    if not same:
+        raise AssertionError("run_elastic after a failure at step "
+                             f"{ELASTIC_FAIL_AT} ended in another state")
+    # The CLI, on the card by default.
+    ck = tmp / "cli"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen3-1.7b", "--reduced", "--steps", str(ELASTIC_STEPS),
+         "--ckpt-dir", str(ck)], cwd=ROOT, capture_output=True, text=True,
+        timeout=TRAIN_TIMEOUT_S, env=dict(os.environ, PYTHONPATH=str(SRC)))
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m repro_torch.launch.train exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    # Its last checkpoint, restored and carried into the reference's layout.
+    step_no, (params, opt), _ = load_checkpoint(str(ck), make_state())
+    ref_tree = (convert.lm_params_to_reference(params),
+                convert.lm_opt_state_to_reference(opt))
+    manifest = json.loads((ck / f"step_{step_no:010d}" /
+                           "manifest.json").read_text())
+    flat = tree_flatten_with_paths(ref_tree)
+    layout_ok = ([k for k, _ in flat] == manifest["keys"]
+                 and [list(np.shape(v)) for _, v in flat]
+                 == manifest["shapes"]
+                 and [np.asarray(v).dtype.name for _, v in flat]
+                 == manifest["dtypes"]
+                 and all(isinstance(v, np.ndarray) for _, v in flat))
+    if step_no != ELASTIC_STEPS or not layout_ok:
+        raise AssertionError(f"the CLI's checkpoint (step {step_no}) does "
+                             "not carry into the reference's layout")
+    return dict(arch=cfg.name, steps=ELASTIC_STEPS,
+                fail_at=ELASTIC_FAIL_AT, save_every=ELASTIC_SAVE_EVERY,
+                clean_wall_s=runs["clean"]["wall_s"],
+                failed_wall_s=runs["failed"]["wall_s"],
+                restarts=b["restarts"], steps_replayed=b["steps_replayed"],
+                final_state_equal=same,
+                first_loss=runs["clean"]["losses"][0],
+                last_loss=runs["clean"]["losses"][-1],
+                cli_s=cli_s, cli_tail=proc.stdout.strip().splitlines()[-1],
+                checkpoint_leaves=len(flat), reference_layout=layout_ok,
+                nvidia_smi=smi)
+
+
+def train_guard(torch, dev, smi: str) -> dict:
+    """(c): dbrx-132b's and hymba-1.5b's reduced train step on the card
+    raises the kernels' NoKernelGradError under ``cuda``; under ``ref``
+    dbrx's (f32) trains, its loss and grad norm within GUARD_LOSS_RTOL of
+    the same step on the CPU."""
+    import importlib
+
+    from repro_torch.config.base import (OptimizerConfig, ShapeConfig,
+                                         TrainConfig)
+    from repro_torch.kernels import NoKernelGradError, ops
+    from repro_torch.launch.serve import REDUCED_MODULES
+    from repro_torch.launch.steps import make_train_step, synth_batch
+    from repro_torch.models.transformer import lm_init
+
+    tc = TrainConfig(optimizer=OptimizerConfig(name="adamw", lr=TRAIN_LR),
+                     microbatches=2)
+    shape = ShapeConfig("train", 64, 4, "train")
+    raised = {}
+    for arch in ("dbrx-132b", "hymba-1.5b"):
+        cfg = dataclasses.replace(importlib.import_module(
+            REDUCED_MODULES[arch]).reduced(), dtype="float32")
+        step, opt_init = make_train_step(cfg, tc)
+        params = lm_init(cfg, seed=0, device=dev)
+        try:
+            step(params, opt_init(params), synth_batch(cfg, shape,
+                                                       device=dev))
+        except NoKernelGradError as e:
+            raised[arch] = str(e)
+        else:
+            raise AssertionError(f"{arch}: a train step through kernels "
+                                 "without a backward pass did not raise")
+    # dbrx (the last cfg is hymba's)
+    cfg = dataclasses.replace(importlib.import_module(
+        REDUCED_MODULES["dbrx-132b"]).reduced(), dtype="float32")
+    step, opt_init = make_train_step(cfg, tc)
+    out = {}
+    for where in ("cuda", "cpu"):
+        params = lm_init(cfg, seed=0, device=where)
+        batch = synth_batch(cfg, shape, device=where)
+        ops.set_default_impl("ref")
+        try:
+            _, _, m = step(params, opt_init(params), batch)
+        finally:
+            ops.set_default_impl("cuda")
+        out[where] = {k: float(v) for k, v in m.items()}
+    gaps = {k: abs(out["cuda"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+            for k in ("loss", "grad_norm")}
+    if not all(g <= GUARD_LOSS_RTOL for g in gaps.values()):
+        raise AssertionError(f"dbrx under impl='ref': card {out['cuda']} "
+                             f"vs CPU {out['cpu']}")
+    return dict(raised={k: v[:120] for k, v in raised.items()},
+                ref_card=out["cuda"], ref_cpu=out["cpu"], rel_gaps=gaps,
+                rtol=GUARD_LOSS_RTOL, nvidia_smi=smi)
+
+
+def phase_lm_train(torch, dev, smi: str, host_params) -> dict:
+    import tempfile
+
+    full = train_full_width(torch, dev, smi, host_params)
+    emit(dict(phase="lm-train (a)", **{k: v for k, v in full.items()}))
+    with tempfile.TemporaryDirectory(prefix="lm_train_") as tmp:
+        elastic = train_elastic(torch, dev, smi, Path(tmp))
+    emit(dict(phase="lm-train (b)", **elastic))
+    guard = train_guard(torch, dev, smi)
+    emit(dict(phase="lm-train (c)", **guard))
+    return dict(full=full, elastic=elastic, guard=guard)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's details here")
@@ -3928,7 +4384,8 @@ def main(argv=None) -> int:
     emit(dict(phase="fl-main", **fl_main))
     lm_kern = phase_lm_kernels(torch, dev)
     emit(dict(phase="lm-kernels", **lm_kern))
-    lm_serve = phase_lm_serve(torch, dev)
+    keep = {}
+    lm_serve = phase_lm_serve(torch, dev, keep)
     emit(dict(phase="lm-serve", **lm_serve))
     lm_kern2 = phase_lm_kernels_2(torch, dev)
     emit(dict(phase="lm-kernels-2", **lm_kern2))
@@ -3944,6 +4401,7 @@ def main(argv=None) -> int:
     gym = phase_gym(torch)
     emit(dict(phase="gym", **gym))
     fleet_shard = phase_fleet_shard(torch, dev, smi)
+    lm_train = phase_lm_train(torch, dev, smi, keep.pop("qwen3_params"))
     at = next(r for r in kern["plan_stats"]
               if r["label"] == "genetic-fleet-scale")
     fc = next(r for r in fl_kern["scatter_add"]
@@ -4013,20 +4471,28 @@ def main(argv=None) -> int:
         bound_ms=fc["bound_ms"], bound_by=fc["bound_by"],
         library_ms=fc["library_ms"],
         launches_by_variant=fl_main["compressed"]["launches_by_variant"],
+        crowded={k: v for k, v in fl_kern["crowded"].items()
+                 if not k.endswith("_gaps")},
         shapes=fl_kern["scatter_add"], **variant_keys(fc))]
-    for name, cu, line, label, launches in (
+    flash_by_path = {
+        "lm-serve qwen3-1.7b prefill (7)": lm_serve["prefill"]["flash_launches"],
+        f"lm-train qwen3-1.7b {TRAIN_STEPS} steps, forward and remat "
+        "recompute (14a)": lm_train["full"]["flash_launches"]}
+    for name, cu, line, label, by_path in (
             ("flash_attention", "flash_attention.cu", "flash_attention.py:35",
-             "qwen3-1.7b prefill", lm_serve["prefill"]["flash_launches"]),
+             "qwen3-1.7b prefill", flash_by_path),
             ("decode_attention", "decode_attention.cu",
              "decode_attention.py:22", "qwen3-1.7b 16 slots",
-             lm_serve["serve"]["decode_launches"])):
+             {"lm-serve qwen3-1.7b serve loop (7)":
+              lm_serve["serve"]["decode_launches"]})):
         rows = lm_kern[name]
         at = next(r for r in rows
                   if r["label"] == label and r["dtype"] == "bfloat16")
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{cu}",
-            replaces=f"src/repro/kernels/{line}", launches=launches,
+            replaces=f"src/repro/kernels/{line}",
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=at["kernel_ms"], plain_ms=at["plain_ms"],
             bound_ms=at["bound_ms"], bound_by=at["bound_by"],
@@ -4060,7 +4526,8 @@ def main(argv=None) -> int:
                  fl_main=fl_main, lm_kernels=lm_kern, lm_serve=lm_serve,
                  lm_kernels_2=lm_kern2, lm_serve_2=lm_serve2,
                  schedulers=scheds, service=service,
-                 service_kill9=kill9, gym=gym, fleet_shard=fleet_shard),
+                 service_kill9=kill9, gym=gym, fleet_shard=fleet_shard,
+                 lm_train=lm_train),
             indent=1, default=str))
     print(json.dumps({"kernels": [{k: v for k, v in kr.items()
                                    if k != "shapes"} for kr in kernels]}))

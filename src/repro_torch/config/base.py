@@ -3,7 +3,9 @@
 ``ArchFamily``, ``AttentionKind``, ``ModelConfig``, ``ShapeConfig`` and
 ``JobConfig``, as the engine, the experiment spec, the CNN zoo
 (``models/cnn_zoo.py``) and the LLM zoo (``models/transformer.py``) use
-them. ``ModelConfig`` carries every field of the reference's, so each
+them; ``OptimizerConfig``, ``TrainConfig`` and ``FLConfig``, the
+reference's, as the LM train path (``launch/steps.py``,
+``launch/train.py``) uses them. ``ModelConfig`` carries every field of the reference's, so each
 architecture family's ``param_count`` is the reference's arithmetic; the
 LLM zoo itself runs the dense, MoE, hybrid and SSM families (audio and
 VLM are ROADMAP module 10).
@@ -181,6 +183,47 @@ class ShapeConfig:
     @property
     def tokens(self) -> int:
         return self.seq_len * self.global_batch
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"  # sgd | momentum | adam | adamw | adafactor
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    momentum: float = 0.9
+    grad_clip: float = 1.0
+    # Gradient compression (FL / cross-pod): 0 disables.
+    topk_compress_ratio: float = 0.0
+    error_feedback: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: OptimizerConfig = OptimizerConfig()
+    microbatches: int = 1            # gradient accumulation steps
+    remat_policy: str = "block"      # none | block | full
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class FLConfig:
+    """Federated plane configuration (the paper's experimental setting)."""
+
+    num_devices: int = 100
+    devices_per_round_ratio: float = 0.1   # C_m: the paper samples 10%
+    local_epochs: int = 5                  # tau_m
+    batch_size: int = 32
+    # Cost weights (Formula 2), set empirically in the paper ("increase
+    # alpha for fast convergence, increase beta for high accuracy").
+    alpha: float = 4.0                     # time-cost weight
+    beta: float = 0.25                     # fairness-cost weight
+    non_iid: bool = True
+    classes_per_device: int = 2            # the paper's non-IID split
+    parts_per_class: int = 20
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,7 +31,12 @@ reference's CNN params, a list of dicts of numpy arrays as
 params)`` takes either form for one job. A language model's params cross
 with ``lm_params_from_reference`` / ``lm_params_to_reference``: the
 reference's ``lm_init`` params (nested dicts, block leaves stacked on a
-leading layer axis) keep that layout in the port. The scheduler gym's
+leading layer axis) keep that layout in the port; its optimizer state
+crosses with ``lm_opt_state_from_reference`` / ``lm_opt_state_to_reference``
+(``OptState(step, inner)`` of sgd, momentum, adam/adamw and adafactor, whose
+vector leaves hold ``(full, None)``), so a training run's ``(params,
+opt_state)`` carries over either way; ``run_elastic``'s checkpoints need no
+conversion (both packages write one layout). The scheduler gym's
 environments cross with ``env_state_from_reference`` (the reference's
 ``EnvState`` or ``ScenarioDraw``, one environment or a vmapped batch, to the
 port's batched tensors), so that both packages step the same scenarios.
@@ -101,6 +106,24 @@ def lm_params_to_reference(params: Dict[str, Any]) -> Dict[str, Any]:
     ``ml_dtypes.bfloat16`` arrays (the package JAX's bf16 arrays use),
     every other leaf as float32."""
     return tree_map(_lm_leaf_to_reference, params)
+
+
+def lm_opt_state_from_reference(opt, device: str = "cuda") -> OptState:
+    """The reference's ``OptState(step, inner)`` of an LLM's optimizer
+    (numpy or JAX leaves) as the port's: the step an int32 tensor, each
+    leaf of ``inner`` a tensor on ``device`` (bfloat16 stays bfloat16,
+    the rest float32), ``None`` and empty subtrees kept."""
+    step, inner = opt
+    return OptState(as_tensor(np.asarray(step), device, torch.int32),
+                    tree_map(lambda a: _lm_leaf_from_reference(a, device),
+                             inner))
+
+
+def lm_opt_state_to_reference(opt: OptState) -> OptState:
+    """The port's LLM optimizer state with numpy leaves in the reference's
+    layout (its optimizers read ``.step`` and ``.inner``)."""
+    return OptState(np.asarray(_host(opt.step), np.int32),
+                    tree_map(_lm_leaf_to_reference, opt.inner))
 
 
 def _host(leaf) -> np.ndarray:

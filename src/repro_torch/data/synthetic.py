@@ -6,8 +6,11 @@ label c. Models must learn the prototypes -> accuracy is a real function of
 training, capacity, and (critically for the paper) WHICH devices' label
 shards participated — the property the fairness term exploits.
 
-Pure numpy, so the port's copy gives the reference's arrays bit for bit.
-The reference's ``make_lm_tokens`` (LM token streams) is ROADMAP module 10.
+``make_lm_tokens`` builds an order-2 Markov token stream with a Zipfian
+marginal so LM training steps have non-trivial learnable signal.
+
+Pure numpy, making the reference's calls in the reference's order, so the
+port's copy gives the reference's arrays bit for bit.
 """
 
 from __future__ import annotations
@@ -37,3 +40,25 @@ def make_classification_dataset(
     y = rng.integers(0, num_classes, size=num_samples).astype(np.int32)
     x = protos[y] + noise * rng.normal(0.0, 1.0, size=(num_samples, *input_shape)).astype(np.float32)
     return x.astype(np.float32), y
+
+
+def make_lm_tokens(num_tokens: int, vocab_size: int, seed: int = 0,
+                   zipf_a: float = 1.2) -> np.ndarray:
+    """Order-2 Markov chain over a Zipfian vocabulary. (num_tokens,) int32."""
+    rng = np.random.default_rng(seed)
+    # Sparse transition structure: each (prev token bucket) prefers 8
+    # successors.
+    buckets = 256
+    succ = rng.integers(0, vocab_size, size=(buckets, 8))
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    zipf_p = ranks ** (-zipf_a)
+    zipf_p /= zipf_p.sum()
+    out = np.empty(num_tokens, dtype=np.int32)
+    tok = int(rng.integers(0, vocab_size))
+    for i in range(num_tokens):
+        if rng.random() < 0.7:
+            tok = int(succ[tok % buckets, rng.integers(0, 8)])
+        else:
+            tok = int(rng.choice(vocab_size, p=zipf_p))
+        out[i] = tok
+    return out

@@ -10,7 +10,10 @@ xg (E, C, din) bucketed tokens, wg (E, din, dout) expert weights ->
 call that launched in ``launches`` and, by the variant ``kernel_variant``
 names, in ``launches_by_variant``; for CPU tensors it is ``moe_gmm_ref``,
 the plain PyTorch version (the reference oracle's einsum). There is no
-fallback: a CUDA tensor launches the named variant or raises.
+fallback: a CUDA tensor launches the named variant or raises. The kernel
+has no backward pass (the reference's has no VJP): on CUDA inputs that
+need a gradient, with grad mode on, ``moe_gmm`` raises
+``NoKernelGradError``; the CPU's plain path stays differentiable.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from repro_torch.kernels import refuse_grad
 
 #: Wrapper calls that launched the kernel since the last reset (one per
 #: call; the plain version does not count).
@@ -86,6 +91,7 @@ def moe_gmm(xg: torch.Tensor, wg: torch.Tensor) -> torch.Tensor:
         return moe_gmm_ref(xg, wg)
     if xg.device.type != "cuda":
         raise ValueError(f"moe_gmm has no kernel for {xg.device}")
+    refuse_grad("moe_gmm", xg, wg)
     for name, t in (("xg", xg), ("wg", wg)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

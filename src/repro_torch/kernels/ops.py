@@ -12,10 +12,18 @@ the kernels (``cuda``, the default) and the plain versions (``ref``), so a
 whole model can be checked against itself on the card; a call's own
 ``impl=`` wins. ``linear_scan_step`` (one decode step) has no kernel, as in
 the reference.
+
+Under autograd only ``attention`` launches its kernel: flash attention's
+backward is the autograd of its plain version, as the reference's
+``custom_vjp`` is the VJP of its oracle. ``moe_gmm`` and ``linear_scan``
+have no VJP in the reference and no backward pass here; asked for a
+gradient on the card they raise ``NoKernelGradError``, so a MoE, hybrid or
+SSM model trains on the card under ``impl="ref"``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Optional
 
@@ -43,6 +51,17 @@ def set_default_impl(impl: str) -> None:
 
 def get_default_impl() -> str:
     return getattr(_state, "impl", "cuda")
+
+
+@contextlib.contextmanager
+def default_impl(impl: str):
+    """``set_default_impl(impl)`` for the body, the previous one after."""
+    prev = get_default_impl()
+    set_default_impl(impl)
+    try:
+        yield
+    finally:
+        set_default_impl(prev)
 
 
 def _resolve(impl: Optional[str]) -> str:

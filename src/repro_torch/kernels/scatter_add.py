@@ -11,12 +11,14 @@ one flat accumulator:
 >= size. ``scatter_add`` launches ``csrc/scatter_add.cu`` for CUDA tensors
 and counts each call that launched in ``launches`` and, by the variant
 ``kernel_variant`` names, in ``launches_by_variant``; for CPU tensors it is
-``scatter_add_ref``, the plain PyTorch version. There is no fallback: a
-CUDA tensor launches the named variant or raises. Both variants sum with
-float atomics (in shared memory for ``tile``), in an order that changes
-from run to run, so on the card the result is not bitwise
-reproducible; it agrees with the plain version within 1e-5 relative plus
-absolute.
+``scatter_add_ref``, the plain PyTorch version (float64 sums rounded
+once). There is no fallback: a CUDA tensor launches the named variant or
+raises. Both variants sum with float atomics (in shared memory for
+``tile``), in an order that changes from run to run, so on the card the
+result is not bitwise reproducible; it agrees with the plain version
+within 1e-5 relative plus absolute. ``atomic`` sums a warp's, then a
+block's, entries first where they all hold one position, so a stream that
+crowds one float sends it one atomic per 256 entries.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ def kernel_variant(n: int, k: int, size: int) -> str:
     memory, one launch and no fill) where it serves the shape and the
     stream has at most ``TILE_MAX_ENTRIES`` entries (VGG16's biases and
     first conv, LeNet-5's small leaves), ``"atomic"`` (float atomics into a
-    zeroed output, the first design) otherwise. Both index types are served
+    zeroed output, the first design, with crowded warps and blocks summed
+    first) otherwise. Both index types are served
     alike, so the rule takes the shape alone."""
     if serves("tile", n, k, size) and n * k <= TILE_MAX_ENTRIES:
         return "tile"
@@ -64,13 +67,16 @@ def scatter_add_ref(vals: torch.Tensor, idx: torch.Tensor,
                     weights: torch.Tensor, size: int) -> torch.Tensor:
     """Plain PyTorch version, with the reference oracle's semantics
     (``repro/kernels/ref.py``): padding and out-of-range positions are
-    routed to one slot past the end, which is sliced off."""
-    wv = vals.to(torch.float32) * weights.to(torch.float32)[:, None]
+    routed to one slot past the end, which is sliced off. Products and
+    sums in float64, rounded to float32 once: a float32 sum of many terms
+    onto one position walks by about 1e-4 (30,000 randn terms), past the
+    1e-5 (1 + |exp|) the kernel is held to where the terms cancel."""
+    wv = vals.to(torch.float64) * weights.to(torch.float64)[:, None]
     flat = idx.reshape(-1).long()
     flat = torch.where((flat < 0) | (flat >= size), size, flat)
-    out = torch.zeros(size + 1, dtype=torch.float32, device=vals.device)
+    out = torch.zeros(size + 1, dtype=torch.float64, device=vals.device)
     out.index_put_((flat,), wv.reshape(-1), accumulate=True)
-    return out[:size]
+    return out[:size].to(torch.float32)
 
 
 def _check(vals, idx, weights, size):

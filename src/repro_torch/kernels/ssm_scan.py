@@ -22,7 +22,9 @@ v's dtype, the math and the state in float32.
   is ``linear_scan_chunked_ref``. Prefill only (zero initial state). The
   final state, where asked for, is formed outside the kernel from the
   decay-weighted keys, as the reference's kernel path does
-  (``ssm_scan.py:121-126``); the models do not ask for it.
+  (``ssm_scan.py:121-126``); the models do not ask for it. The kernel has
+  no backward pass (the reference's has no VJP): on CUDA inputs that need
+  a gradient, with grad mode on, it raises ``NoKernelGradError``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.kernels import refuse_grad
 
 #: Wrapper calls that launched the kernel since the last reset (one per
 #: call; the plain versions do not count).
@@ -205,6 +209,7 @@ def linear_scan(q, k, v, decay, want_final_state: bool = True
         return y, (state if want_final_state else None)
     if q.device.type != "cuda":
         raise ValueError(f"linear_scan has no kernel for {q.device}")
+    refuse_grad("linear_scan", q, k, v, decay)
     B, S, H, Dk = q.shape
     Dv = v.shape[-1]
     for name, t in (("q", q), ("k", k), ("v", v)):

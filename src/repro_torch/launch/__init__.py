@@ -1,2 +1,4 @@
-"""Serving steps and the continuous-batching decode loop of the LLM zoo
-(``steps``, ``serve``), and the fleet-sharding bootstrap (``bootstrap``)."""
+"""Step builders of the LLM zoo (``steps``: train, prefill, decode), the
+continuous-batching decode loop (``serve``), the training driver and its
+elastic runtime (``train``, ``elastic``), and the fleet-sharding bootstrap
+(``bootstrap``)."""

@@ -20,8 +20,16 @@ it reads in f32 (norm scales, the SSD decay base ``a_log``, the sLSTM
 recurrence ``r_h``) stay as they are. The numbers are identical to casting
 per call.
 
-The audio and VLM families raise ``NotImplementedError`` naming ROADMAP
-module 10.
+Training: ``lm_loss`` is the reference's next-token cross-entropy
+(``cross_entropy``, an optional ``loss_mask``) on ``lm_apply(...,
+drop_last_logit=True)``, which slices before the unembed. With grad
+enabled, ``cfg.remat`` checkpoints every block
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
+scanned block): only block inputs are kept, and each block runs again in
+the backward pass.
+
+The audio and VLM families (``frontend`` inputs) raise
+``NotImplementedError`` naming ROADMAP module 10.c.
 """
 
 from __future__ import annotations
@@ -30,8 +38,10 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ArchFamily, ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (attention_apply, attention_decode,
                                           attention_init, init_kv_cache)
@@ -96,6 +106,16 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, n: int):
+    """The ``n`` per-block views of a stacked tree, one ``unbind`` per
+    leaf: under autograd its backward stacks the blocks' gradients in one
+    pass (indexing each block would add a stack-sized buffer per block)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _map(fn, tree, name=""):
     if isinstance(tree, dict):
         return {k: _map(fn, v, k) for k, v in tree.items()}
@@ -150,6 +170,14 @@ def _block_apply(cfg: ModelConfig, p, x, positions):
     return x + mlp_apply(cfg, p["mlp"], rmsnorm(p["norm2"], x, eps))
 
 
+def _remat_block(impl: str, cfg: ModelConfig, p, x, positions):
+    """A checkpointed block under the caller's default kernel impl: the
+    backward pass recomputes it on autograd's own thread (on the card),
+    where the thread-local default is not the caller's."""
+    with ops.default_impl(impl):
+        return _block_apply(cfg, p, x, positions)
+
+
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     x = embed_apply(cfg, params["embed"], tokens)
     # sqrt(d_model) rounded to the compute dtype, as jnp.asarray(., dt); a
@@ -158,16 +186,55 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
                             device=x.device)
 
 
-def lm_apply(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) int -> logits (B, S, vocab) in the compute dtype."""
+def lm_apply(cfg: ModelConfig, params, tokens: torch.Tensor,
+             drop_last_logit: bool = False) -> torch.Tensor:
+    """tokens (B, S) int -> logits (B, S, vocab) in the compute dtype
+    ((B, S - 1, vocab) with ``drop_last_logit``, sliced before the
+    unembed)."""
     _check_family(cfg)
     x = _embed(cfg, params, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    for i in range(num_blocks(cfg)):
-        x = _block_apply(cfg, _layer(params["blocks"], i), x, positions)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p in _unstack(params["blocks"], num_blocks(cfg)):
+        if remat:
+            x = checkpoint(_remat_block, ops.get_default_impl(), cfg, p, x,
+                           positions, use_reentrant=False)
+        else:
+            x = _block_apply(cfg, p, x, positions)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if drop_last_logit:
+        x = x[:, :-1]
     return unembed_apply(cfg, params["embed"], params["head"], x)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
+                  ) -> torch.Tensor:
+    """(B, S) nll in float32: logsumexp minus the label's logit. The
+    reference sums a one-hot mask over the vocabulary for the label logit
+    (sharding-friendly); a gather picks the same number."""
+    lg = logits.float()
+    label = lg.gather(-1, targets[..., None].long())[..., 0]
+    return torch.logsumexp(lg, dim=-1) - label
+
+
+def lm_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """Next-token cross-entropy, a float32 scalar. batch: {tokens, labels,
+    loss_mask?}; a ``frontend`` (audio, VLM) is module 10.c."""
+    if batch.get("frontend") is not None:
+        raise NotImplementedError(
+            "frontend inputs (audio and VLM) are ROADMAP module 10.c, not "
+            "ported yet")
+    logits = lm_apply(cfg, params, batch["tokens"], drop_last_logit=True)
+    labels = batch["labels"]
+    S_lab = labels.shape[1] - 1
+    nll = cross_entropy(logits[:, -S_lab:, :], labels[:, 1:])
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask[:, 1:].float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 # ---------------- decode (serving) ----------------

@@ -918,3 +918,98 @@ def test_sharded_searches_on_one_card_named_four_times(cuda):
     assert sched_score.launches == before + 4
     np.testing.assert_array_equal(got[0], one[0])
     assert got[1] == one[1]
+
+
+# ---- the LM train path (ROADMAP module 10.a) ------------------------------
+# Flash attention runs forward inside autograd; its backward is the autograd
+# of the plain version on the saved inputs, so the kernel's gradients equal
+# the plain version's bit for bit given the same cotangent. The MoE grouped
+# matmul and the linear scan have no backward pass and refuse a gradient.
+
+from repro_torch.kernels import NoKernelGradError  # noqa: E402
+from repro_torch.kernels import ssm_scan as scan_k  # noqa: E402
+
+
+def test_flash_under_autograd_at_a_train_shape(cuda):
+    """qwen3-1.7b's attention at one microbatch of the train phase (1,
+    4096, 16/8 heads of 128, bf16): the forward within the bf16 tolerance
+    of the plain version, the wgmma variant launched once, the gradients
+    of q, k and v equal to the plain version's autograd."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    shapes = ((1, 4096, 16, 128), (1, 4096, 8, 128), (1, 4096, 8, 128))
+    leaves = [randn(g, s, torch.bfloat16).requires_grad_() for s in shapes]
+    cot = torch.randn((1, 4096, 16, 128), device=cuda, generator=g)
+    before = dict(fa.launches_by_variant)
+    out = fa.flash_attention(*leaves)
+    assert fa.launches_by_variant["wgmma"] == before["wgmma"] + 1
+    (out.float() * cot).sum().backward()
+    plain = [t.detach().clone().requires_grad_() for t in leaves]
+    exp = fa.attention_ref(*plain)
+    (exp.float() * cot).sum().backward()
+    tol = ATTN_TOL[torch.bfloat16][0]
+    np.testing.assert_allclose(out.detach().float().cpu(),
+                               exp.detach().float().cpu(), atol=tol, rtol=tol)
+    for a, b in zip(leaves, plain):
+        assert torch.equal(a.grad, b.grad)
+
+
+def test_kernels_without_backward_refuse_gradients(cuda):
+    g = torch.Generator(device=cuda).manual_seed(24)
+    xg = randn(g, (2, 64, 128), torch.bfloat16)
+    wg = randn(g, (2, 128, 64), torch.bfloat16).requires_grad_()
+    with pytest.raises(NoKernelGradError, match="moe_gmm.*no VJP"):
+        gmm.moe_gmm(xg, wg)
+    with torch.no_grad():
+        gmm.moe_gmm(xg, wg)        # inference launches as before
+    gmm.moe_gmm(xg, wg.detach())   # nothing needs a gradient
+    q = randn(g, (1, 128, 2, 32), torch.bfloat16).requires_grad_()
+    k, v = randn(g, (1, 128, 2, 32), torch.bfloat16), randn(
+        g, (1, 128, 2, 32), torch.bfloat16)
+    a = torch.rand((1, 128, 2), device=cuda, generator=g) * 0.5 + 0.5
+    with pytest.raises(NoKernelGradError, match="linear_scan.*no VJP"):
+        scan_k.linear_scan(q, k, v, a)
+    with torch.inference_mode():
+        scan_k.linear_scan(q, k, v, a)
+    # the CPU's plain path still differentiates
+    y, _ = scan_k.linear_scan(q.detach().cpu().float().requires_grad_(),
+                              k.cpu().float(), v.cpu().float(), a.cpu())
+    y.sum().backward()
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "hymba-1.5b", "xlstm-350m"])
+def test_train_step_through_kernels_without_backward_raises(cuda, arch):
+    """A reduced MoE, hybrid or SSM train step on the card raises under
+    the kernels and trains under the plain versions."""
+    import importlib
+
+    from repro_torch.config.base import ShapeConfig, TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import REDUCED_MODULES
+    from repro_torch.launch.steps import make_train_step, synth_batch
+    from repro_torch.models.transformer import lm_init
+
+    cfg = importlib.import_module(REDUCED_MODULES[arch]).reduced()
+    step, opt_init = make_train_step(cfg, TrainConfig())
+    params = lm_init(cfg, seed=0, device=cuda)
+    batch = synth_batch(cfg, ShapeConfig("t", 32, 2, "train"), device=cuda)
+    with pytest.raises(NoKernelGradError, match='impl="ref"'):
+        step(params, opt_init(params), batch)
+    ops.set_default_impl("ref")
+    try:
+        _, _, m = step(params, opt_init(params), batch)
+    finally:
+        ops.set_default_impl("cuda")
+    assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+
+
+@pytest.mark.parametrize("seed", range(20))
+def test_scatter_add_crowded_position_many_seeds(cuda, seed):
+    """The edge stream "every entry on one position" (10 x 3,000 randn
+    entries onto one float, the atomic variant) on 20 seeds, within 1e-5
+    relative plus absolute of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(7700 + seed)
+    vals = torch.randn((10, 3000), device=cuda, generator=g)
+    w = torch.rand(10, device=cuda, generator=g) + 0.1
+    idx = torch.full((10, 3000), T + 77, dtype=torch.int64, device=cuda)
+    assert sa.kernel_variant(10, 3000, 4 * T) == "atomic"
+    check_scatter(vals, idx, w, 4 * T)

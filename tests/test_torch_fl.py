@@ -153,6 +153,23 @@ def test_scatter_add_all_collisions():
     np.testing.assert_array_equal(got[1:], 0.0)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_scatter_add_plain_sums_in_float64(seed):
+    """The plain version sums in float64 and rounds once: on a stream that
+    crowds one position (10 x 3,000 randn entries, chip_smoke.py phase 4's
+    edge stream) it is the float64 sum rounded to float32 (one ulp), where
+    a float32 sum walks by about 1e-4."""
+    rng = np.random.default_rng(seed)
+    vals = rng.normal(0, 1, (10, 3000)).astype(np.float32)
+    w = (rng.random(10) + 0.1).astype(np.float32)
+    idx = np.full((10, 3000), 5, np.int64)
+    got = sa.scatter_add_ref(t(vals), t(idx), t(w), 8).numpy()
+    assert got.dtype == np.float32
+    exact = (vals.astype(np.float64) * w.astype(np.float64)[:, None]).sum()
+    assert abs(float(got[5]) - exact) <= np.spacing(np.float32(abs(exact)))
+    np.testing.assert_array_equal(np.delete(got, 5), 0.0)
+
+
 def test_scatter_add_rejects_bad_inputs():
     vals, idx, w = torch.ones(2, 3), torch.zeros(2, 3).long(), torch.ones(2)
     with pytest.raises(TypeError):

@@ -335,7 +335,7 @@ def test_other_families_raise_module_10(arch):
         pt.lm_init(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
 @pytest.mark.parametrize("arch", PORTED)
 def test_input_specs_match_reference(arch, shape):
     ref_specs = ref_steps.input_specs(ref_get_arch(arch), REF_SHAPES[shape])
