@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--out details.json]
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX and nothing of the
-reference package. Every phase prints one JSON line; any failure exits
-non-zero with a traceback, and no phase's failure is caught.
+reference package. Every phase prints one JSON line, with the script's
+elapsed seconds (``elapsed_s``, host wall from its start); any failure
+exits non-zero with a traceback, and no phase's failure is caught.
 
 1. device  — the card's name and power limit (``nvidia-smi``) and the
    kernel build, from the checkout's sources, one ``nvcc`` per source, with
@@ -88,8 +89,9 @@ non-zero with a traceback, and no phase's failure is caught.
    for bf16 decode rows, of the simt kernel, the design before the tma
    one, held to the same tolerance; the flash autograd.Function's
    gradient against the plain one.
-7. lm-serve — qwen3-1.7b at full width (28 layers, random weights from
-   seed 0) through the port's entry points on the card: ``lm_init``, one
+7. lm-serve — qwen3-1.7b at full width (28 layers, random weights drawn
+   on the card from a seed by ``draw_params``, lm_init's distributions
+   without its numpy draws) through the port's entry points: one
    ``make_prefill_step`` call on (2, 4096) tokens (flash launches exactly
    28 times, all the wgmma variant), the ``launch/serve.py`` loop (32 requests, 16 slots, 32 new
    tokens, a 4096-row cache; decode launches 28 times per step, all the
@@ -128,8 +130,9 @@ non-zero with a traceback, and no phase's failure is caught.
    step, ``torch.profiler`` splits and the bf16 model against itself under
    ``set_default_impl("ref")`` with the share of routings that agree (the
    logit limit on the tokens every layer routed alike, greedy tokens over
-   all); hymba-1.5b (32 layers) and xlstm-350m (24 layers) at full size
-   from ``lm_init``: a (2, 4096) and a (1, 1024) prefill (``linear_scan``
+   all); hymba-1.5b (32 layers, drawn on the card) and xlstm-350m (24
+   layers, from ``lm_init``) at full size: a (2, 4096) and a (1, 128)
+   prefill (``linear_scan``
    once per hymba layer and xlstm mLSTM block; never in decode), the serve
    loop, a step, splits, and each model against itself in f32 and bf16.
    Every launch of these paths is the Hopper design (``HOPPER_VARIANT``:
@@ -151,7 +154,8 @@ non-zero with a traceback, and no phase's failure is caught.
    per decision beside phase 3's host GA. (c) ``paper-group-a``,
    ``paper-group-b`` and ``quickstart`` with their default BODS, and
    ``quickstart`` with RLDS (its 300 pretraining rounds timed apart) and
-   DNN, all on the card: records checked, rounds to target, wall seconds.
+   DNN, both at ``LEARNED_ROUNDS`` of the preset's 150 rounds, all on the
+   card: records checked, rounds to target, wall seconds.
    Each BODS run is held as (a) holds fleet-scale: 2.1 once per decision,
    all of the variant its (256, 100) block picks (``row``, K not a
    multiple of 16), identical decisions under the plain version, and 2.1
@@ -183,7 +187,7 @@ non-zero with a traceback, and no phase's failure is caught.
    path beside phases 3 and 10.
 
 12. gym — the scheduler gym (``repro_torch.gym``) on the card. (a)
-   Random and policy (the RLDS LSTM) rollouts of T = 32 rounds at K = 64
+   Random and policy (the RLDS LSTM) rollouts of T = 16 rounds at K = 64
    and 256 devices (n_sel 10%, 3 jobs, the ``full`` curriculum) over E =
    1, 32 and 256 environments from one set of draws: env steps a second of
    host wall, launches per round and the device's idle share from
@@ -192,7 +196,7 @@ non-zero with a traceback, and no phase's failure is caught.
    identical (a flip only where its availability or top-k margin lies
    within 1e-6 relative, reported). (b) ``python -m repro_torch.gym
    train`` at the gym's published size (``--curriculum full --num-devices
-   64,256 --envs 32 --rollout 32 --minibatches 4``, 8 of the documented 80
+   64,256 --envs 32 --rollout 32 --minibatches 4``, 4 of the documented 80
    iterations): ms per iteration by stage, every mean cost finite, trained
    and untrained eval cost (printed, not gated); ``eval`` and ``list`` on
    the saved entry. (c) The ``policy`` axis: ``rlds-warmstart`` (20 of its
@@ -258,6 +262,31 @@ non-zero with a traceback, and no phase's failure is caught.
    within 1e-4 of the same step on the CPU. The kernels line counts (a)'s
    flash launches beside phase 7's.
 
+15. lm-frontend — the audio and VLM families (module 10.c) on the card,
+   at full width and depth, their weights drawn on the card
+   (``draw_params``); each arch prints one line with the card's name and
+   power limit. (a) musicgen-medium (48 layers, 24/24 heads of 64): one
+   ``make_prefill_step`` call on (2, 4096) frame embeddings (flash 48
+   launches, all wgmma), then 16 decode steps on (16, d) frames from a
+   filled 4096-row cache at lengths 4000-4015 (decode 48 a step, all tma).
+   (b) paligemma-3b (18 layers, 8 heads of 256 over one kv-head): one
+   prefill of 256 patch embeddings and 3840 text tokens a row (flash 18,
+   all mma), the serve loop of phase 7 (decode 18 a step, all tma). For
+   each: prefill ms and tokens a second, a long-cache step, their
+   torch.profiler splits and idle shares, and the whole model against
+   itself under ``set_default_impl("ref")`` (bf16 and f32 prefill on the
+   same batch, a bf16 step on the 16-slot cache and an f32 step on a (4,
+   1024) one) under phase 7's limits. (c) Each trained whole as phase 14
+   (a) trains qwen3-1.7b (``FRONTEND_TRAIN`` tokens, 2 microbatches, remat,
+   AdamW at 3e-4, 3 steps): flash 4 L launches a step inside autograd,
+   the loss after 3 updates below step 1's, step 1 within phase 14's
+   limits of the plain versions, s a step, tokens a second, peak memory
+   and the device split; then ``python -m repro_torch.launch.train --arch
+   <id> --reduced --steps 20`` on the card, its last checkpoint carried
+   into the reference's layout. Phase 6 times both kernels at these
+   archs' prefill and 16-slot decode shapes; the kernels line counts the
+   launches of each path.
+
 The line before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
 them; the last line is ``{"ok": true, "device": {...}}``.
@@ -283,7 +312,13 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 SUM_RTOL = 1e-5
 
 
+T_START = time.perf_counter()
+TIMELINE = []                  # (phase, elapsed s) of every printed line
+
+
 def emit(obj: dict) -> None:
+    obj = dict(obj, elapsed_s=round(time.perf_counter() - T_START, 1))
+    TIMELINE.append((obj.get("phase"), obj["elapsed_s"]))
     print(json.dumps(obj), flush=True)
 
 
@@ -1188,6 +1223,10 @@ FLASH_CASES = [
      ("bfloat16", "float32"), False),
     ("non-causal", 2, 500, 16, 8, 128, False, None, ("bfloat16", "float32"),
      False),
+    ("musicgen-medium prefill (2, 4096), 24/24 heads of 64", 2, 4096, 24, 24,
+     64, True, None, ("bfloat16",), True),
+    ("paligemma-3b prefill (2, 4096), 8/1 heads of 256", 2, 4096, 8, 1, 256,
+     True, None, ("bfloat16",), True),
 ]
 
 def decode_cases():
@@ -1215,6 +1254,10 @@ def decode_cases():
          "edges", ("bfloat16", "float32"), False),
         ("D=256, T=900", 3, 8, 4, 256, 900, "edges", ("bfloat16", "float32"),
          False),
+        ("musicgen-medium 16 slots, 24/24 heads of 64", 16, 24, 24, 64, 4096,
+         "spread", ("bfloat16",), True),
+        ("paligemma-3b 16 slots, 8/1 heads of 256", 16, 8, 1, 256, 4096,
+         "spread", ("bfloat16",), True),
     ]
 
 
@@ -1552,11 +1595,11 @@ def phase_lm_serve(torch, dev, keep: dict) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    from repro_torch.models.transformer import compute_params, lm_init
+    from repro_torch.models.transformer import compute_params
 
     cfg = get_arch("qwen3-1.7b")
     t0 = time.perf_counter()
-    params = lm_init(cfg, seed=0, device=dev)
+    params = draw_params(torch, cfg, dev, seed=1399)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cparams = compute_params(cfg, params)
@@ -1685,7 +1728,7 @@ def phase_lm_serve(torch, dev, keep: dict) -> dict:
     torch.cuda.empty_cache()
     served = sum(len(t) for t in res.tokens)
     return dict(
-        arch=cfg.name, params=cfg.param_count(), init_s=init_s,
+        arch=cfg.name, params=cfg.param_count(), init_on_card_s=init_s,
         prefill=dict(batch=B, seq=S, first_call_s=prefill_s,
                      ms=prefill_ms[0],
                      tokens_per_s=B * S / (prefill_ms[0] / 1e3),
@@ -2002,11 +2045,11 @@ def phase_lm_kernels_2(torch, dev) -> dict:
 
 DBRX_LAYERS = 2                # of 40: two layers at full width fit a card
 HYMBA_PREFILL = (2, 4096)
-XLSTM_PREFILL = (1, 1024)      # its sLSTM steps one token at a time
+XLSTM_PREFILL = (1, 128)       # its sLSTM steps one token at a time
 SELF_CHECK = (1, 2048)         # dbrx's prefill self-check
 # hymba's and xlstm's self-checks run the sequential oracle scan, one
 # token at a time: shorter prompts (xlstm's sLSTM steps token by token too)
-SELF_CHECK_LEN = {"hymba-1.5b": 1024, "xlstm-350m": 256}
+SELF_CHECK_LEN = {"hymba-1.5b": 512, "xlstm-350m": 128}
 
 
 def draw_params(torch, cfg, dev, seed: int):
@@ -2117,8 +2160,9 @@ def blockwise_prefill(torch, ops, cfg, params, tokens, name) -> dict:
     block under ``set_default_impl("ref")``, both fed the kernels' hidden
     state: every output row within BF16_ROW_RTOL of its norm."""
     from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import embed_apply
 
-    x = tf._embed(cfg, params, tokens)
+    x = tf._scaled(cfg, embed_apply(cfg, params["embed"], tokens))
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
     errs = []
@@ -2135,6 +2179,7 @@ def blockwise_decode(torch, ops, cfg, params, dev, name, seed) -> dict:
     """One decode step of 16 slots (lengths 37 b), block by block as in
     blockwise_prefill; each block's plain run gets a copy of its state."""
     from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import embed_apply
 
     def clone(tree):
         if isinstance(tree, dict):
@@ -2148,7 +2193,7 @@ def blockwise_decode(torch, ops, cfg, params, dev, name, seed) -> dict:
     toks = torch.randint(0, cfg.vocab_size, (B,), device=dev, generator=g)
     state = tf.init_decode_state(cfg, B, SERVE["cache_len"], device=dev)
     length = (37 * torch.arange(B, device=dev)).int()
-    x = tf._embed(cfg, params, toks[:, None])
+    x = tf._scaled(cfg, embed_apply(cfg, params["embed"], toks[:, None]))
     errs = []
     for i in range(tf.num_blocks(cfg)):
         p, st = tf._layer(params["blocks"], i), tf._layer(state, i)
@@ -2400,12 +2445,16 @@ def phase_lm_serve_2(torch, dev) -> dict:
     del cparams, toks, step_args
     torch.cuda.empty_cache()
 
-    # hymba-1.5b and xlstm-350m at full size: the hybrid and SSM paths
+    # hymba-1.5b and xlstm-350m at full size: the hybrid and SSM paths;
+    # hymba's weights drawn on the card (lm_init's distributions, without
+    # its 37 s of numpy draws), xlstm's by lm_init
     for arch, shape in (("hymba-1.5b", HYMBA_PREFILL),
                         ("xlstm-350m", XLSTM_PREFILL)):
         cfg = get_arch(arch)
         t0 = time.perf_counter()
-        params = lm_init(cfg, seed=0, device=dev)
+        params = (draw_params(torch, cfg, dev, seed=1610)
+                  if arch == "hymba-1.5b" else lm_init(cfg, seed=0,
+                                                       device=dev))
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         cparams = compute_params(cfg, params)
@@ -2461,6 +2510,8 @@ def routed_agree(torch, got, exp, got_ids, exp_ids) -> dict:
 
 
 # ---- phase 10 ------------------------------------------------------------
+
+LEARNED_ROUNDS = 50            # quickstart's RLDS and DNN runs (of 150)
 
 class SearchLog:
     """For one run, wraps a search entry point of ``repro_torch.core.search``
@@ -2726,7 +2777,8 @@ def phase_schedulers(torch, dev, host_ga_s_per_decision: float) -> dict:
     for preset, sched in (("paper-group-a", "bods"), ("paper-group-b", "bods"),
                           ("quickstart", "bods"), ("quickstart", "rlds"),
                           ("quickstart", "dnn")):
-        spec = get_preset(preset, scheduler=sched)
+        depth = {} if sched == "bods" else {"max_rounds": LEARNED_ROUNDS}
+        spec = get_preset(preset, scheduler=sched, **depth)
         pretrain, bods = {"s": 0.0}, {}
         if sched == "bods":
             run = bods_checked(torch, spec, f"{preset} fused BODS")
@@ -3144,12 +3196,12 @@ def phase_service(torch) -> dict:
 # ``policy`` axis warm-starting RLDS and fused BODS from zoo entries.
 
 GYM_SIZES = ((64, 1), (64, 32), (64, 256), (256, 1), (256, 32), (256, 256))
-GYM_T = 32                 # rounds per rollout
+GYM_T = 16                 # rounds per rollout
 GYM_PROFILE_STEPS = 4      # rounds under torch.profiler per rollout
 GYM_JOBS = 3
 GYM_CURRICULUM = "full"
 GYM_TRAIN = ("--curriculum", "full", "--num-devices", "64,256", "--envs",
-             "32", "--rollout", "32", "--minibatches", "4", "--iters", "8")
+             "32", "--rollout", "32", "--minibatches", "4", "--iters", "4")
 GYM_WARM_ROUNDS = 20       # rlds-warmstart's depth (the preset runs 150)
 GYM_TIMEOUT_S = 400        # each `python -m repro_torch.gym` process
 FLIP_RTOL = 1e-6
@@ -3309,7 +3361,7 @@ def gym_cli(args, cwd) -> tuple:
 
 def gym_train(zoo: str, name: str) -> dict:
     """Phase 12 (b): training through the CLI at the gym's published size
-    (``GYM_TRAIN``, the reference CLI's documented command with 8 of its 80
+    (``GYM_TRAIN``, the reference CLI's documented command with 4 of its 80
     iterations), then ``eval`` and ``list`` on the saved entry."""
     import math
     import re
@@ -3319,7 +3371,8 @@ def gym_train(zoo: str, name: str) -> dict:
     iters = [dict(iter=int(m[1]), stage=int(m[2]), mean_cost=float(m[3]),
                   ms=float(m[4])) for m in re.finditer(
         r"iter +(\d+) stage (\d+) mean_cost=(\S+) \((\d+) ms\)", text)]
-    if len(iters) != 8 or not all(math.isfinite(i["mean_cost"])
+    want = int(GYM_TRAIN[GYM_TRAIN.index("--iters") + 1])
+    if len(iters) != want or not all(math.isfinite(i["mean_cost"])
                                   for i in iters):
         raise AssertionError(f"gym train: iterations {iters}")
     ev = re.search(r"trained mean_cost=(\S+) +untrained=(\S+)", text)
@@ -4048,28 +4101,41 @@ def train_split(torch, fn) -> dict:
 
 
 def train_full_width(torch, dev, smi: str, host_params) -> dict:
-    """(a): qwen3-1.7b whole (remat on) from phase 7's params, AdamW,
-    TRAIN_STEPS steps on one synth_batch of TRAIN_BATCH in
-    TRAIN_MICROBATCHES microbatches; step 1 first under the plain
-    versions."""
+    """(a): qwen3-1.7b whole (remat on) from phase 7's params."""
+    from repro_torch.config.registry import get_arch
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_arch("qwen3-1.7b"), remat=True)
+    box = [tree_map(lambda t: t.to(dev), host_params)]
+    return train_whole(torch, dev, smi, cfg, box, TRAIN_BATCH, "wgmma",
+                       "lm-train (a)")
+
+
+def train_whole(torch, dev, smi: str, cfg, box: list, shape, variant: str,
+                phase: str) -> dict:
+    """``cfg`` whole (remat on) from the f32 params on the card that
+    ``box`` holds (taken out of it, so that the first update frees them),
+    AdamW, TRAIN_STEPS steps on one synth_batch of ``shape`` = (batch,
+    sequence; a VLM's patches included) in TRAIN_MICROBATCHES
+    microbatches; step 1 first under the plain versions. Every flash
+    launch must be ``variant``; on a fault the measured numbers are
+    printed as ``phase`` failed."""
     from repro_torch.config.base import (OptimizerConfig, ShapeConfig,
                                          TrainConfig)
-    from repro_torch.config.registry import get_arch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_train_step, synth_batch
     from repro_torch.models.transformer import lm_loss
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves
 
-    cfg = dataclasses.replace(get_arch("qwen3-1.7b"), remat=True)
     L = cfg.num_layers
-    B, S = TRAIN_BATCH
+    B, S = shape
     step, opt_init = make_train_step(cfg, TrainConfig(
         optimizer=OptimizerConfig(name="adamw", lr=TRAIN_LR),
         microbatches=TRAIN_MICROBATCHES))
     batch = synth_batch(cfg, ShapeConfig("train", S, B, "train"), seed=0,
                         device=dev)
-    params = tree_map(lambda t: t.to(dev), host_params)
+    params = box.pop()
     torch.cuda.synchronize()
 
     # Step 1 with every kernel on its plain version: its update, on the host.
@@ -4125,7 +4191,9 @@ def train_full_width(torch, dev, smi: str, host_params) -> dict:
     def one():
         state["p"], state["o"], _ = step(state["p"], state["o"], batch)
 
+    t_split = time.perf_counter()
     split = train_split(torch, one)
+    split["with_processing_s"] = time.perf_counter() - t_split
     if split["device_busy_ms"] is not None:
         split["device_idle_share"] = 1.0 - split["device_busy_ms"] / (
             statistics.median(step_s) * 1e3)
@@ -4135,10 +4203,10 @@ def train_full_width(torch, dev, smi: str, host_params) -> dict:
     loss_gap = abs(losses[0] - ref_loss) / abs(ref_loss)
     gnorm_gap = abs(gnorms[0] - ref_gnorm) / abs(ref_gnorm)
     faults = []
-    if launches != expected or variants["wgmma"] != launches:
+    if launches != expected or variants[variant] != launches:
         faults.append(f"flash launched {launches} times in {TRAIN_STEPS} "
                       f"train steps ({variants}), expected {expected}, all "
-                      "wgmma")
+                      f"{variant}")
     if not all(math.isfinite(x) for x in losses + gnorms + [final_loss]):
         faults.append(f"non-finite loss or grad norm: {losses}, {gnorms}")
     if not final_loss < losses[0]:
@@ -4152,6 +4220,7 @@ def train_full_width(torch, dev, smi: str, host_params) -> dict:
     tokens = B * S
     out = dict(
         arch=cfg.name, params=cfg.param_count(), batch=B, seq=S,
+        frontend_rows=cfg.frontend_tokens,
         microbatches=TRAIN_MICROBATCHES, remat=True, optimizer="adamw",
         lr=TRAIN_LR, losses=losses, final_loss=final_loss,
         grad_norms=gnorms, step_s=step_s,
@@ -4169,8 +4238,8 @@ def train_full_width(torch, dev, smi: str, host_params) -> dict:
                                   cosine=TRAIN_UPDATE_COS)),
         profile=split, nvidia_smi=smi)
     if faults:  # print what was measured, then fail
-        emit(dict(phase="lm-train (a) failed", **out))
-        raise AssertionError("; ".join(faults))
+        emit(dict(phase=f"{phase} failed", **out))
+        raise AssertionError(f"{cfg.name}: " + "; ".join(faults))
     return out
 
 
@@ -4182,8 +4251,6 @@ def train_elastic(torch, dev, smi: str, tmp: Path) -> dict:
     into the reference's layout (checked against the manifest)."""
     import importlib
 
-    from repro_torch import convert
-    from repro_torch.checkpoint import load_checkpoint
     from repro_torch.config.base import OptimizerConfig, TrainConfig
     from repro_torch.launch.elastic import (ElasticConfig, FailureInjector,
                                             run_elastic)
@@ -4191,8 +4258,7 @@ def train_elastic(torch, dev, smi: str, tmp: Path) -> dict:
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import TokenBatcher
     from repro_torch.models.transformer import lm_init
-    from repro_torch.tree import tree_flatten_with_paths, tree_leaves
-    import numpy as np
+    from repro_torch.tree import tree_leaves
 
     cfg = importlib.import_module(REDUCED_MODULES["qwen3-1.7b"]).reduced()
     step, opt_init = make_train_step(cfg, TrainConfig(
@@ -4229,19 +4295,39 @@ def train_elastic(torch, dev, smi: str, tmp: Path) -> dict:
     if not same:
         raise AssertionError("run_elastic after a failure at step "
                              f"{ELASTIC_FAIL_AT} ended in another state")
-    # The CLI, on the card by default.
-    ck = tmp / "cli"
+    cli = train_cli(torch, dev, "qwen3-1.7b", tmp / "cli", make_state)
+    return dict(arch=cfg.name, steps=ELASTIC_STEPS,
+                fail_at=ELASTIC_FAIL_AT, save_every=ELASTIC_SAVE_EVERY,
+                clean_wall_s=runs["clean"]["wall_s"],
+                failed_wall_s=runs["failed"]["wall_s"],
+                restarts=b["restarts"], steps_replayed=b["steps_replayed"],
+                final_state_equal=same,
+                first_loss=runs["clean"]["losses"][0],
+                last_loss=runs["clean"]["losses"][-1], **cli,
+                nvidia_smi=smi)
+
+
+def train_cli(torch, dev, arch: str, ck: Path, make_state) -> dict:
+    """``python -m repro_torch.launch.train --arch <arch> --reduced --steps
+    ELASTIC_STEPS`` (on the card by default, through run_elastic); its last
+    checkpoint restored into ``make_state()``'s tree and carried into the
+    reference's layout, checked against the manifest."""
+    from repro_torch import convert
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.tree import tree_flatten_with_paths
+    import numpy as np
+
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "qwen3-1.7b", "--reduced", "--steps", str(ELASTIC_STEPS),
-         "--ckpt-dir", str(ck)], cwd=ROOT, capture_output=True, text=True,
-        timeout=TRAIN_TIMEOUT_S, env=dict(os.environ, PYTHONPATH=str(SRC)))
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--reduced", "--steps", str(ELASTIC_STEPS), "--ckpt-dir", str(ck)],
+        cwd=ROOT, capture_output=True, text=True, timeout=TRAIN_TIMEOUT_S,
+        env=dict(os.environ, PYTHONPATH=str(SRC)))
     cli_s = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise AssertionError(f"python -m repro_torch.launch.train exited "
-                             f"{proc.returncode}: {proc.stderr[-2000:]}")
-    # Its last checkpoint, restored and carried into the reference's layout.
+        raise AssertionError(f"python -m repro_torch.launch.train --arch "
+                             f"{arch} exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
     step_no, (params, opt), _ = load_checkpoint(str(ck), make_state())
     ref_tree = (convert.lm_params_to_reference(params),
                 convert.lm_opt_state_to_reference(opt))
@@ -4255,19 +4341,10 @@ def train_elastic(torch, dev, smi: str, tmp: Path) -> dict:
                  == manifest["dtypes"]
                  and all(isinstance(v, np.ndarray) for _, v in flat))
     if step_no != ELASTIC_STEPS or not layout_ok:
-        raise AssertionError(f"the CLI's checkpoint (step {step_no}) does "
-                             "not carry into the reference's layout")
-    return dict(arch=cfg.name, steps=ELASTIC_STEPS,
-                fail_at=ELASTIC_FAIL_AT, save_every=ELASTIC_SAVE_EVERY,
-                clean_wall_s=runs["clean"]["wall_s"],
-                failed_wall_s=runs["failed"]["wall_s"],
-                restarts=b["restarts"], steps_replayed=b["steps_replayed"],
-                final_state_equal=same,
-                first_loss=runs["clean"]["losses"][0],
-                last_loss=runs["clean"]["losses"][-1],
-                cli_s=cli_s, cli_tail=proc.stdout.strip().splitlines()[-1],
-                checkpoint_leaves=len(flat), reference_layout=layout_ok,
-                nvidia_smi=smi)
+        raise AssertionError(f"{arch}: the CLI's checkpoint (step {step_no}) "
+                             "does not carry into the reference's layout")
+    return dict(cli_s=cli_s, cli_tail=proc.stdout.strip().splitlines()[-1],
+                checkpoint_leaves=len(flat), reference_layout=layout_ok)
 
 
 def train_guard(torch, dev, smi: str) -> dict:
@@ -4338,11 +4415,265 @@ def phase_lm_train(torch, dev, smi: str, host_params) -> dict:
     return dict(full=full, elastic=elastic, guard=guard)
 
 
+# ---- phase 15 ------------------------------------------------------------
+
+#: arch -> (draw_params seed, the flash variant its head dim takes): the
+#: audio and VLM families (module 10.c) at full width and depth.
+FRONTEND_ARCHS = {"musicgen-medium": (1700, "wgmma"),
+                  "paligemma-3b": (1710, "mma")}
+FRONTEND_PREFILL = (2, 4096)   # (B, S); paligemma's S holds its 256 patches
+FRONTEND_STEPS = 16            # musicgen's decode steps on frame embeddings
+FRONTEND_TRAIN = {"musicgen-medium": (2, 4096), "paligemma-3b": (2, 4096)}
+F32_DECODE = (4, 1024)         # (slots, rows) of the f32 decode check
+
+
+def frontend_batch(torch, cfg, B: int, S: int, g, dev, dtype=None) -> dict:
+    """A prefill batch of ``S`` positions: musicgen's (B, S, d) frame
+    embeddings alone; paligemma's F patch embeddings and S - F text
+    tokens. Embeddings standard normal in the compute dtype (or
+    ``dtype``)."""
+    from repro_torch.models.layers import compute_dtype
+
+    dt = dtype or compute_dtype(cfg)
+    F = S if cfg.family.value == "audio" else cfg.frontend_tokens
+    batch = {"frontend": torch.randn((B, F, cfg.d_model), device=dev,
+                                     generator=g).to(dt)}
+    if cfg.family.value == "vlm":
+        batch["tokens"] = torch.randint(0, cfg.vocab_size, (B, S - F),
+                                        device=dev, generator=g)
+    return batch
+
+
+def step_inputs(torch, cfg, B: int, g, dev, dtype=None):
+    """One decode step's inputs for ``B`` slots: (B, d) frames for
+    musicgen, token ids for paligemma."""
+    from repro_torch.models.layers import compute_dtype
+
+    if cfg.family.value == "audio":
+        return torch.randn((B, cfg.d_model), device=dev, generator=g).to(
+            dtype or compute_dtype(cfg))
+    return torch.randint(0, cfg.vocab_size, (B,), device=dev,
+                         generator=g).int()
+
+
+def frontend_serve(torch, dev, ops, cfg, params, variant: str, g) -> dict:
+    """(a) and (b): the serving path of one arch through the entry points,
+    flash's and decode's counts at 0 just before and read just after: one
+    prefill of FRONTEND_PREFILL (flash once a layer, all ``variant``), then
+    musicgen's FRONTEND_STEPS decode steps on frames from a filled cache
+    at lengths 4000-4015, or paligemma's serve loop (decode once a layer
+    and step, all ``tma``). Times, device splits, and the model against
+    itself under ``set_default_impl("ref")`` in bf16 and f32."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.transformer import compute_params
+
+    cparams = compute_params(cfg, params)
+    L = cfg.num_layers
+    audio = cfg.family.value == "audio"
+    B, S = FRONTEND_PREFILL
+    slots = SERVE["slots"]
+    prefill, step = make_prefill_step(cfg), make_serve_step(cfg)
+    batch = frontend_batch(torch, cfg, B, S, g, dev)
+    warm = frontend_batch(torch, cfg, 1, 512, g, dev)
+    prefill(cparams, warm)                        # warm-up, not counted
+    state = filled_state(torch, dev, cfg, slots, SERVE["cache_len"], 1701)
+    lengths = (LONG_CACHE + torch.arange(slots, device=dev)).int()
+    step(cparams, state, step_inputs(torch, cfg, slots, g, dev), lengths)
+    if not audio:
+        serve(cfg, cparams, requests=2, slots=2, max_new=2, cache_len=64,
+              device=dev)
+
+    # The main path, both counts at 0 just before and read just after.
+    for k in (fa, da):
+        k.launches = 0
+        k.launches_by_variant = dict.fromkeys(k.VARIANTS, 0)
+    first_ms, _ = timed_ms(torch, lambda: check_logits(
+        cfg, prefill(cparams, batch), (B, S)))
+    at_prefill = dict(flash=fa.launches, decode=da.launches,
+                      flash_by_variant=dict(fa.launches_by_variant))
+    if audio:
+        frames = [step_inputs(torch, cfg, slots, g, dev)
+                  for _ in range(FRONTEND_STEPS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, x in enumerate(frames):
+            logits = step(cparams, state, x, lengths + i)[0]
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t0
+        if tuple(logits.shape) != (slots, cfg.vocab_size) or not bool(
+                logits.isfinite().all()):
+            raise AssertionError(f"{cfg.name}: decode logits malformed")
+        n_steps = FRONTEND_STEPS
+        decoded = dict(steps=n_steps, slots=slots, lengths_from=LONG_CACHE,
+                       wall_s=steps_s, ms_per_step=steps_s / n_steps * 1e3,
+                       frames_per_s=slots * n_steps / steps_s)
+    else:
+        res, decoded = serve_checked(cfg, cparams, dev, serve)
+        n_steps = res.steps
+    at_end = dict(flash=fa.launches, decode=da.launches,
+                  decode_by_variant=dict(da.launches_by_variant))
+    if at_prefill["flash"] != L or at_prefill["decode"] != 0 or \
+            at_prefill["flash_by_variant"][variant] != L:
+        raise AssertionError(f"{cfg.name}: one prefill launched flash "
+                             f"{at_prefill}, expected {L}, all {variant}")
+    if at_end["flash"] != L or at_end["decode"] != L * n_steps or \
+            at_end["decode_by_variant"]["tma"] != L * n_steps:
+        raise AssertionError(f"{cfg.name}: {n_steps} steps launched decode "
+                             f"{at_end}, expected {L} a step, all tma")
+    decoded.update(decode_launches=at_end["decode"],
+                   decode_launches_per_step=at_end["decode"] / n_steps,
+                   decode_launches_by_variant=at_end["decode_by_variant"])
+
+    ms = cuda_time_ms(torch, lambda: prefill(cparams, batch), inner=1,
+                      reps=3, hide_host=False)
+    prefill_split = device_split(torch, lambda: prefill(cparams, batch),
+                                 calls=1)
+    x = step_inputs(torch, cfg, slots, g, dev)
+    step_ms = cuda_time_ms(torch, lambda: step(cparams, state, x, lengths),
+                           inner=5, reps=3, hide_host=False)
+    step_split = device_split(torch, lambda: step(cparams, state, x,
+                                                  lengths), calls=3)
+
+    # bf16: the whole model against itself under the plain versions
+    got = prefill(cparams, batch)
+    exp = with_impl(ops, "ref", lambda: prefill(cparams, batch))
+    bf16_prefill = logits_agree(torch, got, exp)
+    del got, exp
+    st_ref = {"kv": {n: t.clone() for n, t in state["kv"].items()}}
+    got = step(cparams, state, x, lengths)[0]
+    exp = with_impl(ops, "ref", lambda: step(cparams, st_ref, x,
+                                             lengths)[0])
+    bf16_decode = logits_agree(torch, got, exp)
+    del got, exp, st_ref, state, cparams
+    torch.cuda.empty_cache()
+    for name, d in (("bf16 prefill", bf16_prefill),
+                    ("bf16 decode", bf16_decode)):
+        check_bf16_agree(f"{cfg.name} {name}", d)
+    # f32: the same prefill batch; a (4, 1024) cache for the decode step
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    batch32 = {k: v.float() if v.is_floating_point() else v
+               for k, v in batch.items()}
+    pf32 = make_prefill_step(cfg32)
+    got = pf32(params, batch32)
+    exp = with_impl(ops, "ref", lambda: pf32(params, batch32))
+    f32_prefill = logits_agree(torch, got, exp)
+    del got, exp, batch32
+    slots32, rows32 = F32_DECODE
+    st32 = filled_state(torch, dev, cfg32, slots32, rows32, 1702)
+    st_ref = {"kv": {n: t.clone() for n, t in st32["kv"].items()}}
+    len32 = torch.tensor([1, 300, 777, rows32], dtype=torch.int32,
+                         device=dev)
+    x32 = step_inputs(torch, cfg32, slots32, g, dev)
+    step32 = make_serve_step(cfg32)
+    got = step32(params, st32, x32, len32)[0]
+    exp = with_impl(ops, "ref", lambda: step32(params, st_ref, x32,
+                                               len32)[0])
+    f32_decode = logits_agree(torch, got, exp)
+    del got, exp, st32, st_ref
+    torch.cuda.empty_cache()
+    for name, d in (("f32 prefill", f32_prefill), ("f32 decode", f32_decode)):
+        check_f32_agree(f"{cfg.name} {name}", d)
+    return dict(
+        prefill=dict(batch=B, seq=S, frontend_rows=batch["frontend"].shape[1],
+                     first_call_ms=first_ms, ms=ms,
+                     tokens_per_s=B * S / (ms / 1e3),
+                     flash_launches=at_prefill["flash"],
+                     flash_launches_by_variant=at_prefill["flash_by_variant"]),
+        decode=decoded,
+        long_cache_step=dict(slots=slots, lengths=LONG_CACHE, ms=step_ms,
+                             profile=step_split),
+        prefill_profile=prefill_split,
+        f32_vs_plain=dict(prefill=f32_prefill, decode=f32_decode,
+                          decode_slots_rows=list(F32_DECODE),
+                          rtol=MODEL_F32_RTOL),
+        bf16_vs_plain=dict(prefill=bf16_prefill, decode=bf16_decode,
+                           rtol=MODEL_BF16_RTOL,
+                           min_greedy_same=MODEL_BF16_GREEDY))
+
+
+def phase_lm_frontend(torch, dev, smi: str) -> dict:
+    """Phase 15: musicgen-medium (48 layers) and paligemma-3b (18 layers)
+    whole, drawn on the card: serving ((a), (b): ``frontend_serve``), then
+    (c) training (``train_whole``, FRONTEND_TRAIN) and the training CLI at
+    the reduced size. Each arch prints one line."""
+    import importlib
+    import tempfile
+
+    from repro_torch.config.base import OptimizerConfig
+    from repro_torch.config.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import REDUCED_MODULES
+    from repro_torch.models.transformer import lm_init
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(1700)
+    for arch, (seed, variant) in FRONTEND_ARCHS.items():
+        t_arch = time.perf_counter()
+        cfg = dataclasses.replace(get_arch(arch), remat=True)
+        t0 = time.perf_counter()
+        params = draw_params(torch, cfg, dev, seed)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        if n_params != cfg.param_count():
+            raise AssertionError(f"{arch}: {n_params} params drawn, "
+                                 f"param_count {cfg.param_count()}")
+        rec = dict(arch=arch, family=cfg.family.value,
+                   layers=cfg.num_layers, params=n_params,
+                   init_on_card_s=init_s,
+                   heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+                   flash_variant=variant)
+        seconds = {}
+        t0 = time.perf_counter()
+        rec["serve"] = frontend_serve(torch, dev, ops, cfg, params, variant,
+                                      g)
+        seconds["serve"] = time.perf_counter() - t0
+        emit(dict(phase=f"lm-frontend {arch} serve", **rec["serve"]))
+        torch.cuda.empty_cache()
+        box = [params]
+        del params
+        t0 = time.perf_counter()
+        rec["train"] = train_whole(torch, dev, smi, cfg, box,
+                                   FRONTEND_TRAIN[arch], variant,
+                                   f"lm-frontend {arch} train")
+        seconds["train"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        small = importlib.import_module(REDUCED_MODULES[arch]).reduced()
+        opt_init = make_optimizer(OptimizerConfig(name="adamw",
+                                                  lr=TRAIN_LR))[0]
+
+        def make_state():
+            p = lm_init(small, seed=0, device=dev)
+            return (p, opt_init(p))
+
+        with tempfile.TemporaryDirectory(prefix="lm_frontend_") as tmp:
+            rec["cli"] = train_cli(torch, dev, arch, Path(tmp) / "cli",
+                                   make_state)
+        rec["wall_s"] = time.perf_counter() - t_arch
+        rec["seconds_by_part"] = dict(seconds,
+                                      cli=rec["cli"]["cli_s"])
+        emit(dict(phase=f"lm-frontend {arch}",
+                  **{k: v for k, v in rec.items() if k != "serve"},
+                  nvidia_smi=smi))
+        out[arch] = rec
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's details here")
     args = ap.parse_args(argv)
 
+    # Phase 15 trains paligemma-3b whole: its f32 params, gradients, the
+    # two moments and their updates (about 70 GB at the optimizer) fit the
+    # card only without the caching allocator's split-block waste.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -4402,6 +4733,7 @@ def main(argv=None) -> int:
     emit(dict(phase="gym", **gym))
     fleet_shard = phase_fleet_shard(torch, dev, smi)
     lm_train = phase_lm_train(torch, dev, smi, keep.pop("qwen3_params"))
+    lm_frontend = phase_lm_frontend(torch, dev, smi)
     at = next(r for r in kern["plan_stats"]
               if r["label"] == "genetic-fleet-scale")
     fc = next(r for r in fl_kern["scatter_add"]
@@ -4478,13 +4810,35 @@ def main(argv=None) -> int:
         "lm-serve qwen3-1.7b prefill (7)": lm_serve["prefill"]["flash_launches"],
         f"lm-train qwen3-1.7b {TRAIN_STEPS} steps, forward and remat "
         "recompute (14a)": lm_train["full"]["flash_launches"]}
+    decode_by_path = {"lm-serve qwen3-1.7b serve loop (7)":
+                      lm_serve["serve"]["decode_launches"]}
+    frontend_rows = {"flash_attention": {}, "decode_attention": {}}
+    for arch, rec in lm_frontend.items():
+        sv = rec["serve"]
+        flash_by_path[f"lm-frontend {arch} prefill (15)"] = \
+            sv["prefill"]["flash_launches"]
+        flash_by_path[f"lm-frontend {arch} {TRAIN_STEPS} train steps (15c)"] \
+            = rec["train"]["flash_launches"]
+        decode_by_path[f"lm-frontend {arch} {sv['decode']['steps']} decode "
+                       "steps (15)"] = sv["decode"]["decode_launches"]
+        for name, tag in (("flash_attention", "prefill (2, 4096)"),
+                          ("decode_attention", "16 slots")):
+            row = next(r for r in lm_kern[name]
+                       if r["label"].startswith(f"{arch} {tag}"))
+            frontend_rows[name][arch] = dict(
+                {k: row[k] for k in ("label", "shape", "kernel_ms",
+                                     "bound_ms", "plain_ms", "library_ms",
+                                     "max_abs_err")},
+                **variant_keys(row),
+                launches_on_path={k: v for k, v in (
+                    flash_by_path if name == "flash_attention"
+                    else decode_by_path).items() if arch in k})
     for name, cu, line, label, by_path in (
             ("flash_attention", "flash_attention.cu", "flash_attention.py:35",
              "qwen3-1.7b prefill", flash_by_path),
             ("decode_attention", "decode_attention.cu",
              "decode_attention.py:22", "qwen3-1.7b 16 slots",
-             {"lm-serve qwen3-1.7b serve loop (7)":
-              lm_serve["serve"]["decode_launches"]})):
+             decode_by_path)):
         rows = lm_kern[name]
         at = next(r for r in rows
                   if r["label"] == label and r["dtype"] == "bfloat16")
@@ -4496,7 +4850,8 @@ def main(argv=None) -> int:
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=at["kernel_ms"], plain_ms=at["plain_ms"],
             bound_ms=at["bound_ms"], bound_by=at["bound_by"],
-            library_ms=at["library_ms"], shapes=rows, **variant_keys(at)))
+            library_ms=at["library_ms"], frontend_rows=frontend_rows[name],
+            shapes=rows, **variant_keys(at)))
     scan_launches = sum(lm_serve2[m]["serve"]["launches"]["linear_scan"]
                         for m in ("hymba", "xlstm"))
     for name, cu, line, label, launches in (
@@ -4527,7 +4882,8 @@ def main(argv=None) -> int:
                  lm_kernels_2=lm_kern2, lm_serve_2=lm_serve2,
                  schedulers=scheds, service=service,
                  service_kill9=kill9, gym=gym, fleet_shard=fleet_shard,
-                 lm_train=lm_train),
+                 lm_train=lm_train, lm_frontend=lm_frontend,
+                 timeline=TIMELINE),
             indent=1, default=str))
     print(json.dumps({"kernels": [{k: v for k, v in kr.items()
                                    if k != "shapes"} for kr in kernels]}))

@@ -7,8 +7,7 @@ them; ``OptimizerConfig``, ``TrainConfig`` and ``FLConfig``, the
 reference's, as the LM train path (``launch/steps.py``,
 ``launch/train.py``) uses them. ``ModelConfig`` carries every field of the reference's, so each
 architecture family's ``param_count`` is the reference's arithmetic; the
-LLM zoo itself runs the dense, MoE, hybrid and SSM families (audio and
-VLM are ROADMAP module 10).
+LLM zoo runs every family: dense, MoE, hybrid, SSM, audio and VLM.
 """
 
 from __future__ import annotations
@@ -101,6 +100,17 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def is_recurrent(self) -> bool:
+        return self.family in (ArchFamily.SSM, ArchFamily.HYBRID)
+
+    @property
+    def subquadratic(self) -> bool:
+        """True if the arch supports O(1)-state or windowed decode at 500k
+        ctx."""
+        return (self.attention in (AttentionKind.SLIDING, AttentionKind.NONE)
+                or self.is_recurrent)
 
     def param_count(self) -> int:
         if self.family == ArchFamily.CNN:

@@ -1,9 +1,8 @@
 """Architecture configs of the port: the paper's FL model zoo and the
-dense, MoE, hybrid and SSM language models.
+dense, MoE, hybrid, SSM, audio and VLM language models.
 
-Importing this package registers every ported arch with the registry, so
-``repro_torch.config.registry.get_arch("<id>")`` resolves it. The
-reference's audio and VLM language models are ROADMAP module 10.
+Importing this package registers every arch with the registry, so
+``repro_torch.config.get_arch("<id>")`` resolves it, as in the reference.
 """
 
 from repro_torch.configs import (  # noqa: F401
@@ -12,8 +11,23 @@ from repro_torch.configs import (  # noqa: F401
     glm4_9b,
     hymba_1p5b,
     kimi_k2_1t_a32b,
+    musicgen_medium,
+    paligemma_3b,
     paper_models,
     qwen3_1p7b,
     qwen3_8b,
     xlstm_350m,
+)
+
+ASSIGNED_ARCHS = (
+    "qwen3-1.7b",
+    "qwen3-8b",
+    "deepseek-67b",
+    "glm4-9b",
+    "musicgen-medium",
+    "dbrx-132b",
+    "kimi-k2-1t-a32b",
+    "hymba-1.5b",
+    "xlstm-350m",
+    "paligemma-3b",
 )

@@ -63,8 +63,9 @@ def _resolve_model(job: "JobSpec") -> ModelConfig:
     ``stub`` is the scheduler-plane placeholder (a flatten-only classifier —
     never trained by the synthetic runtime, but it gives the engine a valid
     config and the summary a stable key). Any other id resolves through the
-    arch registry (``paper-lenet5``, ``paper-vgg16``, ...); the
-    audio and VLM ids raise ``NotImplementedError`` (ROADMAP module 10).
+    arch registry (``paper-lenet5``, ``paper-vgg16``, ``qwen3-8b``,
+    ``musicgen-medium``, ...), as in the reference; the ``real_fl``
+    runtime then refuses a language model (it trains only the CNN zoo).
     """
     if job.model == STUB_MODEL:
         return ModelConfig(name=job.name, family=ArchFamily.CNN,

@@ -11,10 +11,11 @@ queue at once), greedy sampling. Each request is one prompt token drawn
 from ``np.random.default_rng(0)`` and ``max_new`` emitted tokens; the
 queue is served from its end, as the reference pops it. A refilled slot
 starts at length 0 but keeps the recurrent state (SSD, mLSTM, sLSTM) its
-last request left, as in the reference. ``serve`` returns
-the tokens every request emitted and the step count; the emitted tokens
-stay on the device until the loop ends, so the loop never waits for the
-card.
+last request left, as in the reference. ``serve`` returns the tokens
+every request emitted and the step count; the emitted tokens stay on the
+device until the loop ends, so the loop never waits for the card. The
+VLM serves token prompts (no image prefix), and the CLI refuses the audio
+family before it draws any params, both as in the reference.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.config.base import ModelConfig
+from repro_torch.config.base import ArchFamily, ModelConfig
 from repro_torch.config.registry import get_arch
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models.transformer import (compute_params, init_decode_state,
@@ -45,6 +46,8 @@ REDUCED_MODULES = {
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "hymba-1.5b": "repro_torch.configs.hymba_1p5b",
     "xlstm-350m": "repro_torch.configs.xlstm_350m",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
 }
 
 
@@ -113,7 +116,7 @@ def serve(cfg: ModelConfig, params, *, requests: int, slots: int,
 def load_config(arch: str, reduced: bool) -> ModelConfig:
     if reduced:
         if arch not in REDUCED_MODULES:
-            get_arch(arch)  # raises for the ids that are not ported
+            get_arch(arch)  # an unknown id: KeyError with the known ones
             raise KeyError(f"no reduced config for {arch!r}")
         return importlib.import_module(REDUCED_MODULES[arch]).reduced()
     return get_arch(arch)
@@ -131,6 +134,8 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     args = ap.parse_args(argv)
 
     cfg = load_config(args.arch, args.reduced)
+    if cfg.family == ArchFamily.AUDIO:
+        raise SystemExit("audio decode demo: use examples/serve_batched.py")
     params = compute_params(cfg, lm_init(cfg, seed=0, device=args.device))
     res = serve(cfg, params, requests=args.requests, slots=args.slots,
                 max_new=args.max_new, cache_len=args.cache_len,

@@ -7,7 +7,8 @@ config asks (``models/transformer.py``).
 ``make_serve_step``: one-token decode against the KV and recurrent state.
 ``input_specs``: the shapes and dtypes of a cell's inputs (tokens and
 labels for train; tokens for prefill; state, tokens and lengths for
-decode). ``synth_batch`` fills them with the reference's numpy draws.
+decode; the audio and VLM families' frontend embeddings in the compute
+dtype). ``synth_batch`` fills them with the reference's numpy draws.
 
 The train step runs under ``torch.profiler.record_function`` ranges
 (``train/forward_backward``, ``train/clip``, ``train/optimizer``), which
@@ -22,9 +23,11 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.config.base import ModelConfig, ShapeConfig, TrainConfig
-from repro_torch.models.transformer import (FAMILIES, init_decode_state,
-                                            lm_apply, lm_decode_step, lm_loss)
+from repro_torch.config.base import (ArchFamily, ModelConfig, ShapeConfig,
+                                     TrainConfig)
+from repro_torch.models.layers import compute_dtype
+from repro_torch.models.transformer import (init_decode_state, lm_apply,
+                                            lm_decode_step, lm_loss)
 from repro_torch.optim import clip_by_global_norm, make_optimizer
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -44,26 +47,36 @@ def _specs(tree):
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
-    """train: ``{"tokens", "labels"}``; prefill: ``{"tokens": spec}``;
-    decode: ``{"state": ..., "tokens", "length"}``, the state as
-    ``init_decode_state`` lays it out (one new token against a cache of
-    ``shape.seq_len``; a sliding window keeps ``min(seq_len, window)``
-    rows)."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family.value} family is ROADMAP module "
-            "10.c, not ported yet")
+    """The reference's model inputs of one cell. train: ``{"tokens",
+    "labels"}``; the audio family ``{"frontend" (B, S, d), "labels"}``; the
+    VLM ``{"frontend" (B, F, d), "tokens" and "labels" (B, S - F)}``.
+    prefill: the same without labels. decode: ``{"state": ..., "tokens",
+    "length"}``, the state as ``init_decode_state`` lays it out (one new
+    token against a cache of ``shape.seq_len``; a sliding window keeps
+    ``min(seq_len, window)`` rows), the audio family's token a (B, d)
+    frame. Frontends are in the compute dtype."""
     B, S = shape.global_batch, shape.seq_len
-    if shape.mode == "train":
-        return {"tokens": Spec((B, S), torch.int32),
-                "labels": Spec((B, S), torch.int32)}
-    if shape.mode == "prefill":
-        return {"tokens": Spec((B, S), torch.int32)}
+    dt, i32 = compute_dtype(cfg), torch.int32
+    if shape.mode in ("train", "prefill"):
+        batch: Dict[str, Any] = {}
+        if cfg.family == ArchFamily.AUDIO:
+            batch["frontend"] = Spec((B, S, cfg.d_model), dt)
+        elif cfg.family == ArchFamily.VLM:
+            F = cfg.frontend_tokens
+            batch["frontend"] = Spec((B, F, cfg.d_model), dt)
+            S = S - F
+        if cfg.family != ArchFamily.AUDIO:
+            batch["tokens"] = Spec((B, S), i32)
+        if shape.mode == "train":
+            batch["labels"] = Spec((B, S), i32)
+        return batch
     if shape.mode != "decode":
         raise ValueError(f"unknown mode {shape.mode!r}")
     state = init_decode_state(cfg, B, S, device="meta")
-    return {"state": _specs(state), "tokens": Spec((B,), torch.int32),
-            "length": Spec((B,), torch.int32)}
+    tokens = (Spec((B, cfg.d_model), dt) if cfg.family == ArchFamily.AUDIO
+              else Spec((B,), i32))
+    return {"state": _specs(state), "tokens": tokens,
+            "length": Spec((B,), i32)}
 
 
 def _grads(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, list]:
@@ -152,7 +165,8 @@ def synth_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
 
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, batch):
-        return lm_apply(cfg, params, batch["tokens"])
+        return lm_apply(cfg, params, tokens=batch.get("tokens"),
+                        frontend=batch.get("frontend"))
     return prefill_step
 
 

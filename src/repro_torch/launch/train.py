@@ -11,7 +11,8 @@ microbatch), checkpoints, and ``run_elastic``. ``--device`` (default
 ``cuda``) places the params and batches. On the card the MoE, hybrid and
 SSM families need ``ops.set_default_impl("ref")``: their kernels have no
 backward pass (``kernels.NoKernelGradError``). The audio and VLM archs
-(musicgen-medium, paligemma-3b) are ROADMAP module 10.c.
+(musicgen-medium, paligemma-3b) train on random frontend embeddings, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -22,32 +23,29 @@ import tempfile
 import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.config.base import ArchFamily, OptimizerConfig, TrainConfig
 from repro_torch.data.synthetic import make_lm_tokens
 from repro_torch.kernels import no_grad_error, ops
 from repro_torch.launch.elastic import ElasticConfig, run_elastic
-from repro_torch.launch.serve import REDUCED_MODULES as _SERVED
 from repro_torch.launch.serve import load_config
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.transformer import lm_init
-
-#: arch id -> module with its ``reduced()`` config; the audio and VLM ids
-#: (module 10.c) map to None.
-REDUCED_MODULES = {**_SERVED, "musicgen-medium": None, "paligemma-3b": None}
 
 
 class TokenBatcher:
     """Restartable LM batch stream over a synthetic token corpus
     (``make_lm_tokens``, 200,000 tokens): {"tokens", "labels"}, the same
-    (batch, seq) int32 tensor, on ``device``."""
+    (batch, seq) int32 tensor, on ``device``. The audio family gets
+    {"frontend" (batch, seq, d), "labels"}, the VLM also a "frontend"
+    (batch, F, d): float32 normals from ``np.random.default_rng(cursor)``
+    after the cursor moves, as in the reference, so a restored cursor
+    draws them again."""
 
     def __init__(self, cfg, batch: int, seq: int, seed: int = 0,
                  device="cuda"):
-        if cfg.family in (ArchFamily.AUDIO, ArchFamily.VLM):
-            raise NotImplementedError(
-                f"{cfg.name}: frontend batches are ROADMAP module 10.c")
         self.cfg = cfg
         self.batch, self.seq = batch, seq
         self.device = device
@@ -73,7 +71,18 @@ class TokenBatcher:
         self.cursor += n
         toks = torch.from_numpy(chunk.reshape(self.batch, self.seq)).to(
             self.device)
-        return {"tokens": toks, "labels": toks}
+        fam = self.cfg.family
+        if fam not in (ArchFamily.AUDIO, ArchFamily.VLM):
+            return {"tokens": toks, "labels": toks}
+        rng = np.random.default_rng(self.cursor)
+        rows = self.seq if fam == ArchFamily.AUDIO else \
+            self.cfg.frontend_tokens
+        frontend = torch.from_numpy(rng.normal(
+            0, 1, (self.batch, rows, self.cfg.d_model)).astype(np.float32)
+        ).to(self.device)
+        if fam == ArchFamily.AUDIO:
+            return {"frontend": frontend, "labels": toks}
+        return {"tokens": toks, "labels": toks, "frontend": frontend}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -96,10 +105,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     args = build_parser().parse_args(argv)
 
-    if REDUCED_MODULES.get(args.arch, "") is None:
-        raise NotImplementedError(
-            f"{args.arch}: the audio and VLM families are ROADMAP module "
-            "10.c, not ported yet")
     cfg = load_config(args.arch, args.reduced)
     if (torch.device(args.device).type == "cuda"
             and cfg.family in (ArchFamily.MOE, ArchFamily.HYBRID,

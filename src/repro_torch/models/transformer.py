@@ -1,9 +1,16 @@
-"""Decoder-only LM backbone: the dense, MoE, hybrid and SSM families.
+"""Decoder-only LM backbone: every family of the reference.
 
-  dense         : x += attn(norm(x)); x += mlp(norm(x))
-  moe           : x += attn(norm(x)); x += moe(norm(x))
-  hybrid (hymba): h = norm(x); x += 0.5 (attn(h) + ssd(h)); x += mlp(norm(x))
-  ssm (xlstm)   : x += mlstm(norm(x)); x += slstm(norm(x))     [a pair]
+  dense / audio / vlm : x += attn(norm(x)); x += mlp(norm(x))
+  moe                 : x += attn(norm(x)); x += moe(norm(x))
+  hybrid (hymba)      : h = norm(x); x += 0.5 (attn(h) + ssd(h)); x += mlp(norm(x))
+  ssm (xlstm)         : x += mlstm(norm(x)); x += slstm(norm(x))     [a pair]
+
+The modality frontends are stubs, as in the reference: the VLM prepends
+precomputed patch embeddings (B, F, d) to the embedded text tokens; the
+audio model's precomputed frame embeddings (B, S, d) are the sequence
+itself, and its decode step takes a (B, d) frame (or a codebook token).
+The whole sequence, prefix included, is cast to the compute dtype and
+scaled by sqrt(d_model) in that dtype.
 
 Params keep the reference's layout (``repro/models/transformer.py``):
 ``{"embed", "head", "final_norm", "blocks"}`` with every block leaf STACKED
@@ -27,14 +34,11 @@ enabled, ``cfg.remat`` checkpoints every block
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
 scanned block): only block inputs are kept, and each block runs again in
 the backward pass.
-
-The audio and VLM families (``frontend`` inputs) raise
-``NotImplementedError`` naming ROADMAP module 10.c.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,15 +58,13 @@ from repro_torch.models.moe import moe_apply, moe_init
 #: Leaves that keep their stored dtype in a compute copy (read in f32).
 F32_LEAVES = ("scale", "q_norm", "k_norm", "a_log", "r_h")
 FAMILIES = (ArchFamily.DENSE, ArchFamily.MOE, ArchFamily.HYBRID,
-            ArchFamily.SSM)
+            ArchFamily.SSM, ArchFamily.AUDIO, ArchFamily.VLM)
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family.value} family is ROADMAP module "
-            "10, not ported yet (the port runs the dense, MoE, hybrid and "
-            "SSM LLMs)")
+        raise ValueError(f"{cfg.name}: the {cfg.family.value} family is not "
+                         "a language model")
 
 
 def _block_init(cfg: ModelConfig, rng: np.random.Generator):
@@ -178,21 +180,34 @@ def _remat_block(impl: str, cfg: ModelConfig, p, x, positions):
         return _block_apply(cfg, p, x, positions)
 
 
-def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    x = embed_apply(cfg, params["embed"], tokens)
+def _scaled(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     # sqrt(d_model) rounded to the compute dtype, as jnp.asarray(., dt); a
     # 0-d tensor, so the product stays in that dtype.
     return x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype,
                             device=x.device)
 
 
-def lm_apply(cfg: ModelConfig, params, tokens: torch.Tensor,
+def lm_apply(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
+             frontend: Optional[torch.Tensor] = None,
              drop_last_logit: bool = False) -> torch.Tensor:
-    """tokens (B, S) int -> logits (B, S, vocab) in the compute dtype
-    ((B, S - 1, vocab) with ``drop_last_logit``, sliced before the
-    unembed)."""
+    """Logits (B, S_total, vocab) in the compute dtype ((B, S_total - 1,
+    vocab) with ``drop_last_logit``, sliced before the unembed).
+
+    dense, MoE, hybrid, SSM: ``tokens`` (B, S) int.
+    audio (musicgen): ``frontend`` (B, S, d) frame embeddings; no tokens.
+    VLM (paligemma): ``frontend`` (B, F, d) patch embeddings, then
+    ``tokens`` (B, S_text); S_total = F + S_text.
+    """
     _check_family(cfg)
-    x = _embed(cfg, params, tokens)
+    dt = compute_dtype(cfg)
+    if cfg.family == ArchFamily.AUDIO:
+        x = frontend.to(dt)
+    elif cfg.family == ArchFamily.VLM:
+        x = torch.cat([frontend.to(dt),
+                       embed_apply(cfg, params["embed"], tokens)], dim=1)
+    else:
+        x = embed_apply(cfg, params["embed"], tokens)
+    x = _scaled(cfg, x)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -220,13 +235,11 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
 
 def lm_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
             ) -> torch.Tensor:
-    """Next-token cross-entropy, a float32 scalar. batch: {tokens, labels,
-    loss_mask?}; a ``frontend`` (audio, VLM) is module 10.c."""
-    if batch.get("frontend") is not None:
-        raise NotImplementedError(
-            "frontend inputs (audio and VLM) are ROADMAP module 10.c, not "
-            "ported yet")
-    logits = lm_apply(cfg, params, batch["tokens"], drop_last_logit=True)
+    """Next-token cross-entropy, a float32 scalar. batch: {tokens?,
+    frontend?, labels, loss_mask?}. The logits are aligned to the labels
+    from the end: a frontend prefix carries no labels."""
+    logits = lm_apply(cfg, params, tokens=batch.get("tokens"),
+                      frontend=batch.get("frontend"), drop_last_logit=True)
     labels = batch["labels"]
     S_lab = labels.shape[1] - 1
     nll = cross_entropy(logits[:, -S_lab:, :], labels[:, 1:])
@@ -304,11 +317,15 @@ def _store(dst, src) -> None:
 
 def lm_decode_step(cfg: ModelConfig, params, state, tokens: torch.Tensor,
                    length: torch.Tensor) -> Tuple[torch.Tensor, Any]:
-    """One decode step. tokens (B,) int; length (B,) int32, the current
-    sequence lengths. Returns (logits (B, vocab), state), the state updated
-    in place."""
+    """One decode step. tokens (B,) int, or for the audio family a (B, d)
+    frame embedding; length (B,) int32, the current sequence lengths.
+    Returns (logits (B, vocab), state), the state updated in place."""
     _check_family(cfg)
-    x = _embed(cfg, params, tokens[:, None])
+    if cfg.family == ArchFamily.AUDIO and tokens.dim() == 2:
+        x = tokens.to(compute_dtype(cfg))[:, None]
+    else:
+        x = embed_apply(cfg, params["embed"], tokens[:, None])
+    x = _scaled(cfg, x)
     for i in range(num_blocks(cfg)):
         st = _layer(state, i)
         x, new = _block_decode(cfg, _layer(params["blocks"], i), x, st,

@@ -953,6 +953,100 @@ def test_flash_under_autograd_at_a_train_shape(cuda):
         assert torch.equal(a.grad, b.grad)
 
 
+# The audio and VLM archs' attention at full width: musicgen-medium's MHA
+# of 24 heads of 64 (wgmma, G = 1) and paligemma-3b's MQA of 8 heads of 256
+# over one kv-head (mma, G = 8), at one microbatch of the train phase and
+# at a 16-slot decode against a 4096-row cache.
+FRONTEND_ATTN = {"musicgen-medium": (24, 24, 64, "wgmma"),
+                 "paligemma-3b": (8, 1, 256, "mma")}
+
+
+@pytest.mark.parametrize("arch", list(FRONTEND_ATTN))
+def test_flash_under_autograd_at_a_frontend_shape(cuda, arch):
+    """(1, 4096, H/KV, D) in bf16: the forward within the bf16 tolerance
+    of the plain version, its variant launched once, the gradients of q, k
+    and v equal to the plain version's autograd."""
+    H, KV, D, variant = FRONTEND_ATTN[arch]
+    g = torch.Generator(device=cuda).manual_seed(25)
+    shapes = ((1, 4096, H, D), (1, 4096, KV, D), (1, 4096, KV, D))
+    leaves = [randn(g, s, torch.bfloat16).requires_grad_() for s in shapes]
+    cot = torch.randn(shapes[0], device=cuda, generator=g)
+    assert fa.kernel_variant(torch.bfloat16, 1, 4096, H, KV, D,
+                             None) == variant
+    before = dict(fa.launches_by_variant)
+    out = fa.flash_attention(*leaves)
+    assert fa.launches_by_variant[variant] == before[variant] + 1
+    (out.float() * cot).sum().backward()
+    plain = [t.detach().clone().requires_grad_() for t in leaves]
+    exp = fa.attention_ref(*plain)
+    (exp.float() * cot).sum().backward()
+    tol = ATTN_TOL[torch.bfloat16][0]
+    np.testing.assert_allclose(out.detach().float().cpu(),
+                               exp.detach().float().cpu(), atol=tol, rtol=tol)
+    for a, b in zip(leaves, plain):
+        assert torch.equal(a.grad, b.grad)
+
+
+@pytest.mark.parametrize("arch", list(FRONTEND_ATTN))
+def test_decode_at_a_frontend_shape(cuda, arch):
+    """(16, H/KV, D) against (16, 4096, KV, D) caches in bf16, lengths
+    4000-4015: the tma variant within the decode tolerance."""
+    H, KV, D, _ = FRONTEND_ATTN[arch]
+    g = torch.Generator(device=cuda).manual_seed(26)
+    q = randn(g, (16, H, D), torch.bfloat16)
+    k = randn(g, (16, 4096, KV, D), torch.bfloat16)
+    v = randn(g, (16, 4096, KV, D), torch.bfloat16)
+    length = (4000 + torch.arange(16, device=cuda)).int()
+    assert da.kernel_variant(torch.bfloat16, 16, H, KV, D, 4096) == "tma"
+    before = da.launches_by_variant["tma"]
+    got = da.decode_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    assert da.launches_by_variant["tma"] == before + 1
+    exp = da.decode_attention_ref(q, k, v, length)
+    tol = ATTN_TOL[torch.bfloat16][1]
+    np.testing.assert_allclose(got.float().cpu(), exp.float().cpu(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("arch", list(FRONTEND_ATTN))
+def test_reduced_frontend_models_match_plain_on_card(cuda, arch):
+    """The reduced audio and VLM models on the card (f32): a prefill on
+    frontend embeddings and a decode step (musicgen's on a (B, d) frame)
+    through the kernels against ``ops.set_default_impl("ref")``."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.config.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import REDUCED_MODULES
+    from repro_torch.launch.steps import input_specs, synth_batch
+
+    cfg = dataclasses.replace(importlib.import_module(
+        REDUCED_MODULES[arch]).reduced(), dtype="float32")
+    params = tfm.lm_init(cfg, seed=0, device="cuda")
+    batch = synth_batch(cfg, ShapeConfig("p", 64, 2, "prefill"), seed=1,
+                        device=cuda)
+    dec = synth_batch(cfg, ShapeConfig("d", 32, 3, "decode"), seed=2,
+                      device=cuda)
+    assert tuple(dec["tokens"].shape) == input_specs(
+        cfg, ShapeConfig("d", 32, 3, "decode"))["tokens"].shape
+    dec["length"] = torch.tensor([0, 5, 31], dtype=torch.int32, device=cuda)
+    outs = []
+    for impl in ("cuda", "ref"):
+        ops.set_default_impl(impl)
+        try:
+            state = {"kv": {n: t.clone()
+                            for n, t in dec["state"]["kv"].items()}}
+            outs.append((tfm.lm_apply(cfg, params, **batch),
+                         tfm.lm_decode_step(cfg, params, state, dec["tokens"],
+                                            dec["length"])[0]))
+        finally:
+            ops.set_default_impl("cuda")
+    for got, exp in zip(*outs):
+        np.testing.assert_allclose(got.cpu(), exp.cpu(), atol=1e-4,
+                                   rtol=1e-4)
+
+
 def test_kernels_without_backward_refuse_gradients(cuda):
     g = torch.Generator(device=cuda).manual_seed(24)
     xg = randn(g, (2, 64, 128), torch.bfloat16)

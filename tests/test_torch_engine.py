@@ -168,11 +168,13 @@ def test_reference_result_json_replays(tmp_path):
 
 
 # Each case keeps the id it had when the list also held module 7's,
-# module 8's and module 9's axes.
+# module 8's and module 9's axes. Neither raises for a missing module any
+# more: the reference's real_fl trains only the CNN zoo, and musicgen-medium
+# resolves since module 10.c.
 @pytest.mark.parametrize("change,module", [
-    pytest.param(dict(runtime="real_fl",
+    pytest.param(dict(runtime="real_fl", runtime_kwargs={},
                       jobs=(JobSpec(name="lm", model="musicgen-medium"),)),
-                 "module 10", id="change4-module 10"),
+                 "trains only the paper's CNN zoo", id="change4-module 10"),
     # the reference's real_fl trains only the CNN zoo, so no module fills
     # this; the id is the one the case had when the guard named module 10
     pytest.param(dict(runtime="real_fl", runtime_kwargs={},
@@ -275,22 +277,27 @@ def test_module5_axes_build_and_run_a_round(change):
 
 
 def test_model_other_than_stub_raises():
-    """Only the audio and VLM arch ids still raise (ROADMAP module 10); the
-    paper's CNN zoo builds and trains (tests/test_torch_runtime.py)."""
+    """The paper's CNN zoo builds and trains under real_fl
+    (tests/test_torch_runtime.py); an audio or VLM language model resolves
+    but real_fl refuses it, as the reference's trains only the CNN zoo."""
     spec = presets.get_preset("real-fl-two-job", scheduler="greedy")
     exp = spec.build(device="cpu")
     names = [j.config.model.name for j in exp.engine.jobs]
     assert names == ["paper-lenet5", "paper-cnn-b"]
-    lm = spec.replace(jobs=(JobSpec(name="lm", model="musicgen-medium"),))
-    with pytest.raises(NotImplementedError, match="module 10"):
-        lm.build(device="cpu")
+    for model in ("musicgen-medium", "paligemma-3b"):
+        lm = spec.replace(jobs=(JobSpec(name="lm", model=model),))
+        with pytest.raises(NotImplementedError,
+                           match="trains only the paper's CNN zoo"):
+            lm.build(device="cpu")
 
 
 @pytest.mark.parametrize("model", ["qwen3-8b", "deepseek-67b", "dbrx-132b",
-                                   "hymba-1.5b", "xlstm-350m"])
+                                   "hymba-1.5b", "xlstm-350m",
+                                   "musicgen-medium", "paligemma-3b"])
 def test_synthetic_preset_with_dense_llm_job_identical(model):
-    """A dense, MoE, hybrid or SSM LLM id resolves in both packages: a
-    synthetic-runtime run with such a job gives the reference's records."""
+    """A dense, MoE, hybrid, SSM, audio or VLM LLM id resolves in both
+    packages: a synthetic-runtime run with such a job gives the reference's
+    records."""
     ref_spec, port_spec = twin_specs("quickstart", "greedy", max_rounds=6)
     jobs = (JobSpec(name="lm", model=model, max_rounds=6),) + tuple(
         port_spec.jobs[1:])

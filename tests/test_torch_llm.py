@@ -1,7 +1,10 @@
 """The port's LLM serving path against the reference's
 (``repro.models.transformer``, ``repro.launch``) on the CPU, at the
 ``reduced()`` sizes of the four dense configs, the two MoE configs
-(dbrx-132b, kimi-k2), the hybrid (hymba-1.5b) and the SSM (xlstm-350m).
+(dbrx-132b, kimi-k2), the hybrid (hymba-1.5b), the SSM (xlstm-350m), the
+audio model (musicgen-medium: frame embeddings are the sequence) and the
+VLM (paligemma-3b: patch embeddings before the text). Full-width configs
+are checked through ``lm_param_shapes`` (meta tensors) only.
 
 ``lm_init`` must be bit-identical (the same numpy draws, rounded to float32
 once). Logits agree within a tolerance: in float32 both packages compute
@@ -29,11 +32,14 @@ torch = pytest.importorskip("torch")
 
 from repro.config.registry import get_arch as ref_get_arch  # noqa: E402
 from repro.config.shapes import SHAPES as REF_SHAPES  # noqa: E402
+from repro.config.shapes import shape_applicable as ref_applicable  # noqa: E402
 from repro.configs import ASSIGNED_ARCHS  # noqa: E402
 from repro.launch import steps as ref_steps  # noqa: E402
 from repro.models import layers as ref_layers  # noqa: E402
 from repro.models import transformer as rt  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch import config as port_config_pkg  # noqa: E402
+from repro_torch import configs as port_configs  # noqa: E402
 from repro_torch.config import base as port_base  # noqa: E402
 from repro_torch.config.base import AttentionKind  # noqa: E402
 from repro_torch.config.shapes import SHAPES  # noqa: E402
@@ -44,7 +50,8 @@ from repro_torch.tree import tree_leaves  # noqa: E402
 
 DENSE = ("qwen3-1.7b", "qwen3-8b", "glm4-9b", "deepseek-67b")
 OTHERS = ("dbrx-132b", "kimi-k2-1t-a32b", "hymba-1.5b", "xlstm-350m")
-PORTED = DENSE + OTHERS
+FRONTEND = ("musicgen-medium", "paligemma-3b")
+PORTED = DENSE + OTHERS + FRONTEND
 LOGIT_TOL_F32 = 1e-4
 LOGIT_TOL_BF16 = 0.25
 STATE_TOL = {"float32": 1e-5, "bfloat16": 0.05}
@@ -89,6 +96,23 @@ def tokens(seed, shape, vocab):
         np.int32)
 
 
+def prefill_inputs(cfg, seed, B, S):
+    """(reference kwargs, port batch) of one prefill: ``tokens`` (B, S);
+    for the audio family ``frontend`` frames (B, S, d) alone; for the VLM
+    ``frontend`` patches (B, F, d) before the (B, S) text. Frontends are
+    float32 normals, cast to the compute dtype inside."""
+    fam = cfg.family.value
+    kw = {}
+    if fam != "audio":
+        kw["tokens"] = tokens(seed, (B, S), cfg.vocab_size)
+    if fam in ("audio", "vlm"):
+        rows = S if fam == "audio" else cfg.frontend_tokens
+        kw["frontend"] = np.random.default_rng(seed + 1).normal(
+            0, 1, (B, rows, cfg.d_model)).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in kw.items()},
+            {k: torch.as_tensor(v) for k, v in kw.items()})
+
+
 def assert_logits_close(ref_logits, port_logits, dtype):
     tol = LOGIT_TOL_F32 if dtype == "float32" else LOGIT_TOL_BF16
     exp = np.asarray(jnp.asarray(ref_logits, jnp.float32))
@@ -124,7 +148,7 @@ def test_lm_init_bit_identical(arch):
     ref_params, params = twin_params(ref_cfg, cfg, seed=5)
     check_init_and_convert(ref_params, params, torch.float32)
     n = sum(t.numel() for t in tree_leaves(params))
-    if cfg.family.value in ("dense", "moe"):
+    if cfg.family.value in ("dense", "moe", "audio", "vlm"):
         # the hybrid and SSM param_count formulas are estimates, in the
         # reference too (hymba's 160,320 for a tree of 148,296)
         assert n == cfg.param_count()
@@ -161,16 +185,67 @@ def test_param_shapes_match_reference(arch):
 def test_lm_apply_matches_reference(arch, dtype):
     ref_cfg, cfg = reduced_pair(arch, dtype=dtype)
     ref_params, params = twin_params(ref_cfg, cfg)
-    toks = tokens(1, (2, 24), cfg.vocab_size)
-    exp = rt.lm_apply(ref_cfg, ref_params, tokens=jnp.asarray(toks))
+    ref_kw, batch = prefill_inputs(cfg, 1, 2, 24)
+    exp = rt.lm_apply(ref_cfg, ref_params, **ref_kw)
     prefill = steps.make_prefill_step(cfg)
-    got = prefill(pt.compute_params(cfg, params),
-                  {"tokens": torch.as_tensor(toks)})
+    got = prefill(pt.compute_params(cfg, params), batch)
     assert got.dtype == TDT[dtype]
     assert_logits_close(exp, got, dtype)
     # casting per call (f32 params) gives the same numbers as the copy
-    torch.testing.assert_close(pt.lm_apply(cfg, params, torch.as_tensor(toks)),
-                               got, rtol=0, atol=0)
+    torch.testing.assert_close(pt.lm_apply(cfg, params, **batch), got,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vlm_prefill_with_patch_prefix(dtype):
+    """paligemma: F patch embeddings, then the text; logits over all F + S
+    positions (the positions run on through the prefix), the patches cast
+    to the compute dtype and scaled by sqrt(d_model) in it, as the
+    reference does. Other patches change the text's logits."""
+    ref_cfg, cfg = reduced_pair("paligemma-3b", dtype=dtype)
+    ref_params, params = twin_params(ref_cfg, cfg)
+    ref_kw, batch = prefill_inputs(cfg, 2, 3, 9)
+    F = cfg.frontend_tokens
+    got = pt.lm_apply(cfg, params, **batch)
+    assert tuple(got.shape) == (3, F + 9, cfg.vocab_size)
+    assert_logits_close(rt.lm_apply(ref_cfg, ref_params, **ref_kw), got,
+                        dtype)
+    other = dict(batch, frontend=batch["frontend"] * 2)
+    text = pt.lm_apply(cfg, params, **other)[:, F:]
+    assert not torch.equal(text, got[:, F:])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_audio_decode_step_on_a_frame(dtype):
+    """musicgen's decode step on (B, d) frame embeddings (the reference's
+    ``tokens.ndim == 2`` branch), from a cache filled by earlier frames:
+    logits and caches against ``repro.models.transformer.lm_decode_step``,
+    step by step."""
+    ref_cfg, cfg = reduced_pair("musicgen-medium", dtype=dtype)
+    ref_params, params = twin_params(ref_cfg, cfg)
+    cparams = pt.compute_params(cfg, params)
+    B, T = 3, 16
+    ref_step = jax.jit(functools.partial(rt.lm_decode_step, ref_cfg))
+    ref_state = rt.init_decode_state(ref_cfg, B, T)
+    state = pt.init_decode_state(cfg, B, T, device="cpu")
+    frames = np.random.default_rng(7).normal(
+        0, 1, (5, B, cfg.d_model)).astype(np.float32)
+    length = np.asarray([0, 4, 9], np.int32)
+    for i in range(5):
+        exp, ref_state = ref_step(ref_params, ref_state,
+                                  jnp.asarray(frames[i]), jnp.asarray(length))
+        got, state = pt.lm_decode_step(cfg, cparams, state,
+                                       torch.as_tensor(frames[i]),
+                                       torch.as_tensor(length))
+        assert tuple(got.shape) == (B, cfg.vocab_size)
+        assert_logits_close(exp, got, dtype)
+        length = length + 1
+    tol = STATE_TOL[dtype]
+    for t in ("k", "v"):
+        np.testing.assert_allclose(
+            state["kv"][t].float().numpy(),
+            np.asarray(ref_state["kv"][t].astype(jnp.float32)),
+            atol=tol, rtol=tol)
 
 
 def run_decode_twins(ref_cfg, cfg, batch, cache_len, lengths0, n_steps,
@@ -295,7 +370,8 @@ def reference_serve_loop(ref_cfg, ref_params, requests, slots, max_new,
     return out, steps_run
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "glm4-9b"] + list(OTHERS))
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "glm4-9b"] + list(OTHERS)
+                         + list(FRONTEND))
 def test_serve_loop_greedy_tokens_identical(arch):
     ref_cfg, cfg = reduced_pair(arch, dtype="float32")
     ref_params, params = twin_params(ref_cfg, cfg)
@@ -315,9 +391,29 @@ def test_serve_cli_on_cpu(capsys):
     assert len(res.tokens) == 5 and all(len(t) == 4 for t in res.tokens)
     assert res.steps == 12   # 3 waves of 4 steps on 2 slots
     assert "served 5 requests / 20 tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="module 10"):
+
+
+def test_serve_cli_exits_on_audio_as_the_reference(monkeypatch):
+    """The reference's CLI exits on the audio family (its frames need
+    examples/serve_batched.py) before it draws any params; so does the
+    port's, with the same message. paligemma serves token prompts."""
+    from repro.launch import serve as ref_serve
+
+    monkeypatch.setattr("sys.argv", ["serve", "--arch", "musicgen-medium",
+                                     "--reduced"])
+    with pytest.raises(SystemExit) as ref_exit:
+        ref_serve.main()
+    monkeypatch.setattr(port_serve, "lm_init", None)   # never reached
+    with pytest.raises(SystemExit) as port_exit:
         port_serve.main(["--arch", "musicgen-medium", "--reduced",
                          "--device", "cpu"])
+    assert str(port_exit.value) == str(ref_exit.value)
+    assert "serve_batched" in str(port_exit.value)
+    monkeypatch.undo()
+    res = port_serve.main(["--arch", "paligemma-3b", "--reduced",
+                           "--requests", "3", "--slots", "2", "--max-new",
+                           "3", "--cache-len", "8", "--device", "cpu"])
+    assert [len(t) for t in res.tokens] == [3, 3, 3]
 
 
 @pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
@@ -328,16 +424,59 @@ def test_param_count_matches_reference(arch):
     assert cfg.param_count() == ref_cfg.param_count()
 
 
-@pytest.mark.parametrize("arch", ["musicgen-medium", "paligemma-3b"])
-def test_other_families_raise_module_10(arch):
-    cfg = port_config(ref_get_arch(arch))
-    with pytest.raises(NotImplementedError, match="module 10"):
-        pt.lm_init(cfg, device="cpu")
+@pytest.mark.parametrize("arch", FRONTEND)
+def test_frontend_archs_resolve_at_full_width(arch):
+    """The audio and VLM ids resolve in the port as in the reference, field
+    for field; their full-width trees (meta tensors, nothing drawn) hold
+    ``param_count`` parameters."""
+    cfg = port_config_pkg.get_arch(arch)
+    assert cfg == port_config(ref_get_arch(arch))
+    assert cfg.family in pt.FAMILIES
+    shapes = tree_leaves(pt.lm_param_shapes(cfg))
+    assert all(t.device.type == "meta" for t in shapes)
+    assert sum(t.numel() for t in shapes) == cfg.param_count()
+    if cfg.tie_embeddings:
+        assert pt.lm_param_shapes(cfg)["head"] == {}
 
 
-@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_assigned_archs_and_registry_match_reference():
+    import repro.config as ref_config
+
+    assert port_configs.ASSIGNED_ARCHS == ASSIGNED_ARCHS
+    assert port_config_pkg.list_archs() == ref_config.list_archs()
+    assert set(ASSIGNED_ARCHS) == set(PORTED)
+
+
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_subquadratic_matches_reference(arch):
+    ref_cfg = ref_get_arch(arch)
+    cfg = port_config_pkg.get_arch(arch)
+    assert cfg.subquadratic == ref_cfg.subquadratic
+    assert cfg.is_recurrent == ref_cfg.is_recurrent
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_shape_applicable_matches_reference(arch, shape):
+    """Only the sub-quadratic archs (sliding window, recurrent) take
+    long_500k's 524,288-row context."""
+    got = port_config_pkg.shape_applicable(port_config_pkg.get_arch(arch),
+                                           port_config_pkg.SHAPES[shape])
+    assert got == ref_applicable(ref_get_arch(arch), REF_SHAPES[shape])
+    if shape == "long_500k":
+        assert got == (arch in ("hymba-1.5b", "xlstm-350m"))
+    else:
+        assert got
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
 @pytest.mark.parametrize("arch", PORTED)
 def test_input_specs_match_reference(arch, shape):
+    """Every (arch, shape) cell ``shape_applicable`` admits."""
+    if not ref_applicable(ref_get_arch(arch), REF_SHAPES[shape]):
+        assert not port_config_pkg.shape_applicable(
+            port_config(ref_get_arch(arch)), SHAPES[shape])
+        return
     ref_specs = ref_steps.input_specs(ref_get_arch(arch), REF_SHAPES[shape])
     specs = steps.input_specs(port_config(ref_get_arch(arch)), SHAPES[shape])
     ref_flat = jax.tree_util.tree_leaves(ref_specs)

@@ -46,10 +46,11 @@ def max_err(a, b) -> float:
 
 def test_registry_lists_the_paper_zoo():
     llms = ("qwen3-1.7b", "qwen3-8b", "glm4-9b", "deepseek-67b", "dbrx-132b",
-            "kimi-k2-1t-a32b", "hymba-1.5b", "xlstm-350m")
+            "kimi-k2-1t-a32b", "hymba-1.5b", "xlstm-350m", "musicgen-medium",
+            "paligemma-3b")
     assert tuple(sorted(ARCHS + llms)) == tuple(list_archs())
-    with pytest.raises(NotImplementedError, match="module 10"):
-        get_arch("musicgen-medium")
+    assert get_arch("musicgen-medium").family.value == "audio"
+    assert get_arch("paligemma-3b").family.value == "vlm"
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 

@@ -227,6 +227,73 @@ def test_token_batcher_bit_exact_and_restartable():
                                   next(tb)["tokens"].numpy())
 
 
+@pytest.mark.parametrize("arch", ["musicgen_medium", "paligemma_3b"])
+def test_token_batcher_frontend_draws_bit_exact(arch):
+    """The audio and VLM batches: float32 frontends drawn from
+    ``default_rng(cursor)`` after the cursor moves, the reference's keys and
+    values; a restored ``state()`` draws the same batch again."""
+    import importlib
+
+    ref_cfg = importlib.import_module("repro.configs." + arch).reduced()
+    cfg = importlib.import_module("repro_torch.configs." + arch).reduced()
+    ref_tb = ref_train.TokenBatcher(ref_cfg, 3, 20, seed=2)
+    tb = port_train.TokenBatcher(cfg, 3, 20, seed=2, device="cpu")
+    rows = 20 if cfg.family.value == "audio" else cfg.frontend_tokens
+    for _ in range(3):
+        rb, pb = next(ref_tb), next(tb)
+        assert list(rb) == list(pb)
+        assert tuple(pb["frontend"].shape) == (3, rows, cfg.d_model)
+        assert pb["frontend"].dtype == torch.float32
+        for k in rb:
+            np.testing.assert_array_equal(np.asarray(rb[k]), pb[k].numpy())
+    saved = tb.state()
+    assert saved == ref_tb.state()
+    nxt = next(tb)
+    tb.restore(saved)
+    again = next(tb)
+    assert all(torch.equal(again[k], nxt[k]) for k in nxt)
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+@pytest.mark.parametrize("arch", ["musicgen_medium", "paligemma_3b"])
+def test_frontend_arch_train_state_converts_both_ways(arch, name):
+    """musicgen's untied head and the embedding its prefill never reads,
+    paligemma's empty (tied) head and single-KV-head ``wk``/``wv``: params
+    and optimizer state cross both ways exactly, and the reference's
+    optimizer takes them back."""
+    import importlib
+
+    cfg = dataclasses.replace(importlib.import_module(
+        "repro.configs." + arch).reduced(), dtype="float32")
+    params, _ = rt.lm_init(cfg, 0)
+    init, update = ref_opt.make_optimizer(RefOptimizerConfig(name=name))
+    grads = jax.tree_util.tree_map(lambda p: jnp.ones_like(p) * 0.01, params)
+    _, ref_state = update(grads, init(params), params)
+    host_p, host_o = jax.device_get(params), jax.device_get(ref_state)
+    got_p = convert.lm_params_from_reference(host_p, device="cpu")
+    got_o = convert.lm_opt_state_from_reference(host_o, device="cpu")
+    if cfg.tie_embeddings:
+        assert got_p["head"] == {}
+    assert got_p["blocks"]["attn"]["wk"].shape[-1] == \
+        cfg.num_kv_heads * cfg.head_dim
+    for ref_tree, tree in ((host_p, got_p), (host_o, got_o)):
+        ref_leaves = jax.tree_util.tree_leaves(ref_tree)
+        assert len(ref_leaves) == len(tree_leaves(tree))
+        for a, b in zip(ref_leaves, tree_leaves(tree)):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    back_p = convert.lm_params_to_reference(got_p)
+    back_o = convert.lm_opt_state_to_reference(got_o)
+    assert int(back_o.step) == int(host_o.step)
+    for back, host in ((back_p, host_p), (back_o.inner, host_o.inner)):
+        assert jax.tree_util.tree_structure(back) == \
+            jax.tree_util.tree_structure(host)
+        for a, b in zip(jax.tree_util.tree_leaves(back),
+                        jax.tree_util.tree_leaves(host)):
+            assert np.asarray(a).dtype == np.asarray(b).dtype
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    update(grads, back_o, back_p)
+
+
 # ---- run_elastic (tests/test_elastic.py's four behaviours) ----
 
 class CountingBatcher:

@@ -1,6 +1,8 @@
 """The port's LM train path against the reference's on the CPU, at the
 ``reduced()`` sizes of qwen3-1.7b (dense), dbrx-132b (MoE), hymba-1.5b
-(hybrid) and xlstm-350m (SSM): ``cross_entropy``, ``lm_loss``,
+(hybrid), xlstm-350m (SSM), musicgen-medium (audio: frame embeddings, no
+tokens) and paligemma-3b (VLM: patch embeddings before the text, whose
+labels alone carry the loss): ``cross_entropy``, ``lm_loss``,
 ``lm_apply(drop_last_logit=True)``, ``synth_batch`` and ``make_train_step``
 (``repro/launch/steps.py``, ``repro/models/transformer.py``), the
 reference run with its plain kernels (``impl="ref"``, its default).
@@ -44,10 +46,12 @@ from repro_torch.launch import train as port_train  # noqa: E402
 from repro_torch.models import transformer as pt  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_unflatten  # noqa: E402
 
-ARCHS = ("qwen3-1.7b", "dbrx-132b", "hymba-1.5b", "xlstm-350m")
+ARCHS = ("qwen3-1.7b", "dbrx-132b", "hymba-1.5b", "xlstm-350m",
+         "musicgen-medium", "paligemma-3b")
 OPTIMIZERS = ("sgd", "momentum", "adamw", "adafactor")
-#: (microbatches, remat): a Latin square over ARCHS x OPTIMIZERS, so every
-#: arch and every optimizer meets each pair once.
+#: (microbatches, remat): a Latin square over the first four ARCHS x
+#: OPTIMIZERS, so each of those archs and every optimizer meets each pair
+#: once; the last two archs continue the cycle.
 MB_REMAT = ((1, False), (2, True), (1, True), (2, False))
 STEP_CASES = [(arch, opt) + MB_REMAT[(i + j) % 4]
               for i, arch in enumerate(ARCHS)
@@ -81,7 +85,14 @@ def shapes(seq=SEQ, batch=BATCH, mode="train"):
             ShapeConfig("t", seq, batch, mode))
 
 
+def seq_of(cfg, text=SEQ):
+    """The cell's sequence: ``text`` label positions after the VLM's
+    ``frontend_tokens`` patches (0 for the other families)."""
+    return text + cfg.frontend_tokens
+
+
 def twin_batch(rc, pc, seed, **kw):
+    kw.setdefault("seq", seq_of(pc))
     rs, ps = shapes(**kw)
     rb = ref_steps.synth_batch(rc, rs, seed=seed)
     pb = steps.synth_batch(pc, ps, seed=seed, device="cpu")
@@ -106,8 +117,10 @@ def test_synth_batch_bit_exact(arch):
         rb, pb = twin_batch(rc, pc, seed=7, mode=mode)
         assert sorted(rb) == sorted(pb)
         for k in rb:
-            assert pb[k].dtype == torch.int32
-            np.testing.assert_array_equal(np.asarray(rb[k]), pb[k].numpy())
+            # tokens and labels int32, frontends in the compute dtype
+            assert str(pb[k].dtype) == "torch." + str(rb[k].dtype)
+            np.testing.assert_array_equal(np.asarray(rb[k], np.float64),
+                                          pb[k].double().numpy())
 
 
 @pytest.mark.parametrize("shape", [(2, 5, 11), (3, 300)])
@@ -129,7 +142,7 @@ def test_lm_loss_matches_reference(arch, masked):
     ref_params, _ = rt.lm_init(rc, 0)
     params = pt.lm_init(pc, 0, device="cpu")
     rb, pb = twin_batch(rc, pc, seed=11)
-    if masked:
+    if masked:   # over the label positions
         mask = np.random.default_rng(5).random((BATCH, SEQ)) < 0.6
         rb = dict(rb, loss_mask=mask)
         pb = dict(pb, loss_mask=torch.from_numpy(mask))
@@ -146,12 +159,12 @@ def test_drop_last_logit_slices_before_unembed(arch):
     ref_params, _ = rt.lm_init(rc, 0)
     params = pt.lm_init(pc, 0, device="cpu")
     rb, pb = twin_batch(rc, pc, seed=12)
-    exp = np.asarray(rt.lm_apply(rc, ref_params, tokens=rb["tokens"],
-                                 drop_last_logit=True))
+    rb.pop("labels"), pb.pop("labels")
+    exp = np.asarray(rt.lm_apply(rc, ref_params, **rb, drop_last_logit=True))
     with torch.no_grad():
-        full = pt.lm_apply(pc, params, pb["tokens"])
-        got = pt.lm_apply(pc, params, pb["tokens"], drop_last_logit=True)
-    assert tuple(got.shape) == (BATCH, SEQ - 1, pc.vocab_size)
+        full = pt.lm_apply(pc, params, **pb)
+        got = pt.lm_apply(pc, params, **pb, drop_last_logit=True)
+    assert tuple(got.shape) == (BATCH, seq_of(pc) - 1, pc.vocab_size)
     torch.testing.assert_close(got, full[:, :-1], rtol=0, atol=0)
     np.testing.assert_allclose(got.numpy(), exp, rtol=0, atol=1e-4)
 
@@ -164,7 +177,8 @@ def test_remat_changes_no_number(arch):
     for remat in (False, True):
         _, pc = reduced_pair(arch, dtype="float32", remat=remat)
         params = pt.lm_init(pc, 0, device="cpu")
-        pb = steps.synth_batch(pc, shapes()[1], seed=13, device="cpu")
+        pb = steps.synth_batch(pc, shapes(seq_of(pc))[1], seed=13,
+                               device="cpu")
         outs.append(steps._grads(pc, params, pb))
     (l0, g0), (l1, g1) = outs
     assert torch.equal(l0, l1)
@@ -225,9 +239,13 @@ def test_train_specs_match_reference(arch):
     rs, ps = shapes(seq=64, batch=8)
     ref_specs = ref_steps.input_specs(rc, rs)
     specs = steps.input_specs(pc, ps)
-    assert sorted(ref_specs) == sorted(specs) == ["labels", "tokens"]
+    assert list(ref_specs) == list(specs)
+    want = {"audio": ["frontend", "labels"],
+            "vlm": ["frontend", "tokens", "labels"]}
+    assert list(specs) == want.get(pc.family.value, ["tokens", "labels"])
     for k, s in ref_specs.items():
-        assert specs[k] == steps.Spec(tuple(s.shape), torch.int32)
+        dtype = getattr(torch, str(s.dtype))
+        assert specs[k] == steps.Spec(tuple(s.shape), dtype)
 
 
 def test_train_cli_on_cpu(tmp_path, capsys):
@@ -247,10 +265,18 @@ def test_train_cli_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("arch", ["musicgen-medium", "paligemma-3b"])
-def test_train_cli_other_families_raise_10c(arch, tmp_path):
-    with pytest.raises(NotImplementedError, match="module 10.c"):
-        port_train.main(["--arch", arch, "--reduced", "--ckpt-dir",
-                         str(tmp_path), "--device", "cpu"])
+def test_train_cli_trains_frontend_archs(arch, tmp_path, capsys):
+    """The audio and VLM archs train through the CLI on TokenBatcher's
+    frontend batches, as the reference's do; a second run with the same
+    checkpoint directory takes no step."""
+    argv = ["--arch", arch, "--reduced", "--steps", "6", "--batch", "2",
+            "--seq", "24", "--save-every", "3", "--ckpt-dir",
+            str(tmp_path / "ck"), "--device", "cpu"]
+    out = port_train.main(argv)
+    assert out["restarts"] == 0 and len(out["losses"]) == 6
+    assert all(np.isfinite(out["losses"]))
+    assert "done: 6 steps" in capsys.readouterr().out
+    assert port_train.main(argv)["losses"] == []
 
 
 def test_train_cli_defaults_to_the_card():
