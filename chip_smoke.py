@@ -287,6 +287,24 @@ exits non-zero with a traceback, and no phase's failure is caught.
    archs' prefill and 16-slot decode shapes; the kernels line counts the
    launches of each path.
 
+16. moe-ep — dbrx-132b's MoE path expert-parallel (module 10.d), run
+   inside phase 9 on its dbrx weights (2 of 40 layers at full width: d
+   6,144, d_ff 10,752, 16 experts, top 4) and printed after it with the
+   card's name and power limit: one (2, 4096) prefill through
+   ``make_prefill_step`` with no mesh, then under ``use_mesh`` with the
+   ``emulate`` executor on a (1, 4) and a (2, 4) ("data", "model")
+   layout. Each (data i, model j) block routes its own batch shard
+   (capacity from its own tokens) and launches kernel 2.5 three times on
+   its 4 experts, (4, C_loc, 6144) x (4, 6144, 10752) for gate and up and
+   the transposed shape for down; every count at 0 before each run and
+   read after: 3 a block a layer (6, 24 and 48), all ``wgmma``. Logits: at
+   (1, 4) against the no-mesh run (the same capacity), at (2, 4) against
+   the no-mesh path run on each data shard's rows alone, phase 7's bf16
+   limit on the tokens every layer routed alike, greedy tokens over all.
+   Each layout's prefill ms, and block (0, 0)'s gate/up and down launches
+   on their captured inputs against the plain version, ``torch.bmm`` and
+   the bound. The kernels line counts 2.5's launches by path.
+
 The line before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
 them; the last line is ``{"ok": true, "device": {...}}``.
@@ -2414,7 +2432,9 @@ def recurrent_self_check(torch, dev, ops, cfg, params, cparams, short
                 bf16_block_row_rtol=BF16_ROW_RTOL)
 
 
-def phase_lm_serve_2(torch, dev) -> dict:
+def phase_lm_serve_2(torch, dev, ep=None) -> dict:
+    """Phase 9; with ``ep`` a dict, phase 16 runs on dbrx's weights before
+    they are freed and fills it."""
     from repro_torch.config.registry import get_arch
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import compute_params, lm_init
@@ -2442,7 +2462,10 @@ def phase_lm_serve_2(torch, dev) -> dict:
                        init_on_card_s=init_s,
                        bf16_vs_plain=moe_self_check(torch, ops, cfg, cparams,
                                                     toks, step_args))
-    del cparams, toks, step_args
+    del step_args
+    if ep is not None:
+        ep.update(phase_moe_ep(torch, cfg, cparams, toks))
+    del cparams, toks
     torch.cuda.empty_cache()
 
     # hymba-1.5b and xlstm-350m at full size: the hybrid and SSM paths;
@@ -2475,6 +2498,163 @@ def phase_lm_serve_2(torch, dev) -> dict:
         del params, cparams, toks
         torch.cuda.empty_cache()
     return out
+
+
+# ---- phase 16 ------------------------------------------------------------
+
+EP_LAYOUTS = ((1, 4), (2, 4))  # (data, model) layouts of the EP MoE path
+
+
+class GmmCapture:
+    """While installed, keeps clones of the inputs of the first three
+    ``ops.moe_gmm`` calls (one shard's gate, up and down on the EP path):
+    the smoke's own instrumentation."""
+
+    def __init__(self, ops):
+        self.ops, self.orig, self.calls = ops, ops.moe_gmm, []
+
+    def __enter__(self):
+        def kept(xg, wg, impl=None):
+            if len(self.calls) < 3:
+                self.calls.append((xg.clone(), wg.clone()))
+            return self.orig(xg, wg, impl)
+        self.ops.moe_gmm = kept
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.moe_gmm = self.orig
+        return False
+
+
+def per_layer_ids(torch, calls, L: int, per_layer: int, stride: int):
+    """One routing (tokens, k) per layer from a RouteLog's calls, ``per_layer``
+    calls a layer: the calls ``0, stride, 2 stride, ...`` of each layer (one
+    a data shard) concatenated in token order. The calls of one data shard
+    (its model shards) must route alike."""
+    out = []
+    for layer in range(L):
+        group = calls[layer * per_layer:(layer + 1) * per_layer]
+        for i in range(0, per_layer, stride):
+            for other in group[i + 1:i + stride]:
+                if not torch.equal(other, group[i]):
+                    raise AssertionError("the model shards of one data shard "
+                                         "routed differently")
+        out.append(torch.cat(group[::stride], 0))
+    return out
+
+
+def ep_gmm_row(torch, gmm, label: str, x, w) -> dict:
+    """Kernel 2.5 on one shard's captured inputs against its plain version,
+    ``torch.bmm`` and the bound."""
+    got = gmm.moe_gmm(x, w)
+    exp = gmm.moe_gmm_ref(x, w)
+    err = attn_close(got, exp, GMM_TOL["bfloat16"], f"moe_gmm EP {label}")
+    del got, exp
+    E, C, din = x.shape
+    dout = w.shape[2]
+    flops = 2.0 * E * C * din * dout
+    nbytes = (E * C * din + E * din * dout + E * C * dout) * x.element_size()
+    bound_ms, bound_by = attn_bound(nbytes, flops, "bfloat16")
+    ms = cuda_time_ms(torch, lambda: gmm.moe_gmm(x, w), inner=3, reps=5)
+    return dict(label=label, shape=[E, C, din, dout],
+                variant=gmm.kernel_variant(x.dtype, E, C, din, dout),
+                max_abs_err=err, kernel_ms=ms,
+                plain_ms=cuda_time_ms(torch, lambda: gmm.moe_gmm_ref(x, w),
+                                      inner=3, reps=5),
+                library_ms=cuda_time_ms(torch, lambda: torch.bmm(x, w),
+                                        inner=3, reps=5),
+                bound_ms=bound_ms, bound_by=bound_by,
+                tflops=flops / (ms * 1e9))
+
+
+def phase_moe_ep(torch, cfg, cparams, toks) -> dict:
+    """Phase 16: dbrx-132b's MoE path, expert-parallel, at phase 9's width
+    and weights (2 of 40 layers, 16 experts, top 4, d 6144, d_ff 10,752).
+    One (2, 4096) prefill through ``make_prefill_step`` with no mesh, then
+    under ``use_mesh`` with the ``emulate`` executor on each of
+    EP_LAYOUTS: each (data i, model j) block routes its own batch shard
+    (capacity from its own tokens) and runs kernel 2.5 three times on its 4
+    experts, partials summed over j in float32. Every count at 0 before
+    each run and read after: 3 launches a block a layer. Logits: at (1, 4)
+    against the no-mesh run (same capacity), at (2, 4) against the no-mesh
+    path run on each data shard's rows alone; phase 7's bf16 limit on the
+    tokens every layer routed alike in both (``routed_agree``), greedy
+    tokens over all. Each layout's prefill ms, and one shard's gate/up and
+    down launches (captured inputs) against the plain version, ``torch.bmm``
+    and the bound."""
+    from repro_torch.config.base import MeshConfig
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sharding import use_mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import moe as moe_mod
+
+    L = cfg.num_layers
+    prefill = make_prefill_step(cfg)
+    B = toks.shape[0]
+
+    def counted(fn):
+        gmm.launches = 0
+        gmm.launches_by_variant = dict.fromkeys(gmm.VARIANTS, 0)
+        with RouteLog(moe_mod) as log:
+            out = fn()
+        torch.cuda.synchronize()
+        return out, gmm.launches, dict(gmm.launches_by_variant), log.ids
+
+    base, n0, by0, ids0 = counted(lambda: prefill(cparams, {"tokens": toks}))
+    if n0 != 3 * L:
+        raise AssertionError(f"moe-ep: {n0} moe_gmm launches with no mesh, "
+                             f"expected {3 * L}")
+    rec = dict(arch=cfg.name, layers=L, prefill=[B, toks.shape[1]],
+               no_mesh=dict(launches=n0, launches_by_variant=by0,
+                            ms=timed_ms(torch, lambda: prefill(
+                                cparams, {"tokens": toks}))[0]),
+               layouts={}, shard_gmm=[])
+    for nd, nm in EP_LAYOUTS:
+        layout = MeshConfig((nd, nm), ("data", "model"))
+        name = f"({nd}, {nm})"
+        with use_mesh(layout):
+            got, n, by, ids = counted(
+                lambda: prefill(cparams, {"tokens": toks}))
+            with GmmCapture(ops) as cap:
+                prefill(cparams, {"tokens": toks})     # not counted
+            ms, _ = timed_ms(torch, lambda: prefill(cparams, {"tokens": toks}))
+        want = 3 * L * nd * nm
+        if n != want or by["wgmma"] != n:
+            raise AssertionError(f"moe-ep {name}: moe_gmm launched {n} times "
+                                 f"({by}), expected {want}, all wgmma")
+        if nd == 1:
+            exp, exp_ids = base, ids0
+        else:  # the no-mesh path on each data shard's rows alone
+            rows = B // nd
+            parts = [counted(lambda i=i: prefill(
+                cparams, {"tokens": toks[i * rows:(i + 1) * rows]}))
+                for i in range(nd)]
+            exp = torch.cat([p[0] for p in parts], 0)
+            exp_ids = [torch.cat([p[3][layer] for p in parts], 0)
+                       for layer in range(L)]
+        got_ids = per_layer_ids(torch, ids, L, nd * nm, nm)
+        agree = routed_agree(torch, got, exp, got_ids, exp_ids)
+        check_bf16_agree(f"moe-ep {name} prefill", agree["routed_alike"])
+        if agree["all"]["greedy_same"] < MODEL_BF16_GREEDY:
+            raise AssertionError(f"moe-ep {name}: greedy tokens the same at "
+                                 f"{agree['all']['greedy_same']}")
+        check_logits(cfg, got, tuple(toks.shape))
+        E_local = cfg.num_experts // nm
+        rec["layouts"][name] = dict(
+            executor="emulate", blocks=nd * nm, experts_per_shard=E_local,
+            capacity_per_shard=moe_mod.capacity(cfg, B // nd * toks.shape[1]),
+            launches=n, launches_by_variant=by, ms=ms, vs_reference=agree,
+            reference="no mesh" if nd == 1 else "no mesh on each data shard")
+        del got, exp
+        # block (0, 0)'s launches of layer 0, on their captured inputs
+        for label, (x, w) in (("gate/up", cap.calls[0]),
+                              ("down", cap.calls[2])):
+            rec["shard_gmm"].append(ep_gmm_row(
+                torch, gmm, f"{name} shard (0, 0) {label}", x, w))
+        del cap
+        torch.cuda.empty_cache()
+    return rec
 
 
 def variant_keys(row: dict) -> dict:
@@ -4720,8 +4900,10 @@ def main(argv=None) -> int:
     emit(dict(phase="lm-serve", **lm_serve))
     lm_kern2 = phase_lm_kernels_2(torch, dev)
     emit(dict(phase="lm-kernels-2", **lm_kern2))
-    lm_serve2 = phase_lm_serve_2(torch, dev)
+    moe_ep = {}
+    lm_serve2 = phase_lm_serve_2(torch, dev, ep=moe_ep)
     emit(dict(phase="lm-serve-2", **lm_serve2))
+    emit(dict(phase="moe-ep", nvidia_smi=smi, **moe_ep))
     scheds = phase_schedulers(torch, dev,
                               main_path["wall_s"] / main_path["decisions"])
     emit(dict(phase="schedulers", **scheds))
@@ -4854,32 +5036,44 @@ def main(argv=None) -> int:
             shapes=rows, **variant_keys(at)))
     scan_launches = sum(lm_serve2[m]["serve"]["launches"]["linear_scan"]
                         for m in ("hymba", "xlstm"))
-    for name, cu, line, label, launches in (
+    gmm_by_path = {
+        "lm-serve-2 dbrx-132b prefill and serve loop (9)":
+            lm_serve2["dbrx"]["serve"]["launches"]["moe_gmm"],
+        "moe-ep dbrx-132b prefill, no mesh (16)":
+            moe_ep["no_mesh"]["launches"],
+        **{f"moe-ep dbrx-132b prefill, {name} emulate (16)": r["launches"]
+           for name, r in moe_ep["layouts"].items()}}
+    for name, cu, line, label, by_path in (
             ("moe_gmm", "moe_gmm.cu", "moe_gmm.py:20",
-             "dbrx prefill (2 x 4096), gate/up",
-             lm_serve2["dbrx"]["serve"]["launches"]["moe_gmm"]),
+             "dbrx prefill (2 x 4096), gate/up", gmm_by_path),
             ("linear_scan", "linear_scan.cu", "ssm_scan.py:31",
-             "hymba prefill (2, 4096), 25 heads, 16 x 128", scan_launches),
-            ("rmsnorm", "rmsnorm.cu", "rmsnorm.py:17", "(8192, 6144)", 0)):
+             "hymba prefill (2, 4096), 25 heads, 16 x 128",
+             {"lm-serve-2 hymba-1.5b and xlstm-350m (9)": scan_launches}),
+            ("rmsnorm", "rmsnorm.cu", "rmsnorm.py:17", "(8192, 6144)", {})):
         rows = lm_kern2[name]
         at = next(r for r in rows
                   if r["label"] == label and r["dtype"] == "bfloat16")
+        extra = {} if name != "moe_gmm" else dict(
+            ep_shards=moe_ep["shard_gmm"])
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{cu}",
-            replaces=f"src/repro/kernels/{line}", launches=launches,
+            replaces=f"src/repro/kernels/{line}",
+            launches=sum(by_path.values()), launches_by_path=by_path,
             on_main_path=name != "rmsnorm",  # no model calls rmsnorm
-            max_abs_err=max(r["max_abs_err"] for r in rows),
+            max_abs_err=max(r["max_abs_err"] for r in rows
+                            + extra.get("ep_shards", [])),
             ms=at["kernel_ms"], plain_ms=at["plain_ms"],
             bound_ms=at["bound_ms"], bound_by=at["bound_by"],
-            library_ms=at["library_ms"], shapes=rows, **variant_keys(at)))
+            library_ms=at["library_ms"], shapes=rows, **extra,
+            **variant_keys(at)))
     emit(dict(phase="kernels", kernels=kernels))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(device=device, kernels=kernels, main=main_path,
                  fl_main=fl_main, lm_kernels=lm_kern, lm_serve=lm_serve,
-                 lm_kernels_2=lm_kern2, lm_serve_2=lm_serve2,
+                 lm_kernels_2=lm_kern2, lm_serve_2=lm_serve2, moe_ep=moe_ep,
                  schedulers=scheds, service=service,
                  service_kill9=kill9, gym=gym, fleet_shard=fleet_shard,
                  lm_train=lm_train, lm_frontend=lm_frontend,

@@ -1,7 +1,7 @@
 """Typed configuration dataclasses: the part the ported paths use.
 
-``ArchFamily``, ``AttentionKind``, ``ModelConfig``, ``ShapeConfig`` and
-``JobConfig``, as the engine, the experiment spec, the CNN zoo
+``ArchFamily``, ``AttentionKind``, ``ModelConfig``, ``ShapeConfig``,
+``MeshConfig`` (the meshes of ``launch/mesh.py``) and ``JobConfig``, as the engine, the experiment spec, the CNN zoo
 (``models/cnn_zoo.py``) and the LLM zoo (``models/transformer.py``) use
 them; ``OptimizerConfig``, ``TrainConfig`` and ``FLConfig``, the
 reference's, as the LM train path (``launch/steps.py``,
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 from typing import Tuple
 
 
@@ -193,6 +194,18 @@ class ShapeConfig:
     @property
     def tokens(self) -> int:
         return self.seq_len * self.global_batch
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """A device mesh's layout: its shape and axis names."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def num_devices(self) -> int:
+        return math.prod(self.shape)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,6 +9,8 @@ config asks (``models/transformer.py``).
 labels for train; tokens for prefill; state, tokens and lengths for
 decode; the audio and VLM families' frontend embeddings in the compute
 dtype). ``synth_batch`` fills them with the reference's numpy draws.
+``batch_axes`` and ``opt_state_axes`` are the logical axes of a cell's
+inputs and of an optimizer's state (``launch/sharding.py``).
 
 The train step runs under ``torch.profiler.record_function`` ranges
 (``train/forward_backward``, ``train/clip``, ``train/optimizer``), which
@@ -23,10 +25,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.config.base import (ArchFamily, ModelConfig, ShapeConfig,
+from repro_torch.config.base import (ArchFamily, ModelConfig,
+                                     OptimizerConfig, ShapeConfig,
                                      TrainConfig)
 from repro_torch.models.layers import compute_dtype
-from repro_torch.models.transformer import (init_decode_state, lm_apply,
+from repro_torch.models.transformer import (decode_state_axes,
+                                            init_decode_state, lm_apply,
                                             lm_decode_step, lm_loss)
 from repro_torch.optim import clip_by_global_norm, make_optimizer
 from repro_torch.tree import tree_leaves, tree_unflatten
@@ -77,6 +81,45 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
               else Spec((B,), i32))
     return {"state": _specs(state), "tokens": tokens,
             "length": Spec((B,), i32)}
+
+
+def batch_axes(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Logical axes matching ``input_specs``."""
+    if shape.mode in ("train", "prefill"):
+        axes: Dict[str, Any] = {}
+        if cfg.family in (ArchFamily.AUDIO, ArchFamily.VLM):
+            axes["frontend"] = ("batch", "seq", None)
+        if cfg.family != ArchFamily.AUDIO:
+            axes["tokens"] = ("batch", "seq")
+        if shape.mode == "train":
+            axes["labels"] = ("batch", "seq")
+        return axes
+    tok_ax = (("cache_batch", None) if cfg.family == ArchFamily.AUDIO
+              else ("cache_batch",))
+    return {"state": decode_state_axes(cfg), "tokens": tok_ax,
+            "length": ("cache_batch",)}
+
+
+def _map_axes(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_axes(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def opt_state_axes(cfg: ModelConfig, params_axes, opt: OptimizerConfig):
+    """Logical axes of the optimizer state (``OptState(step, inner)``),
+    mirroring the params' (adafactor's row accumulator drops the last
+    dim, its column accumulator the one before)."""
+    if opt.name in ("adam", "adamw"):
+        inner = (params_axes, params_axes)
+    elif opt.name == "momentum":
+        inner = params_axes
+    elif opt.name == "adafactor":
+        inner = _map_axes(lambda a: (a[:-1], a[:-2] + a[-1:]) if len(a) >= 2
+                          else (a, None), params_axes)
+    else:  # sgd
+        inner = ()
+    return {"step": (), "inner": inner}
 
 
 def _grads(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, list]:

@@ -21,6 +21,9 @@ import torch
 
 from repro_torch.config.base import AttentionKind, ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.sharding import (is_dtensor, local_apply,
+                                         merge_dims, resolve_spec, shard,
+                                         split_dim)
 from repro_torch.models.layers import normal, ones, param_dtype, rope, \
     use_param
 
@@ -43,6 +46,19 @@ def attention_init(cfg: ModelConfig, rng: np.random.Generator):
     return p
 
 
+def attention_axes(cfg: ModelConfig):
+    # GQA (kv < h): the small kv projections keep their columns whole on
+    # every model shard; MHA shards them as it shards wq.
+    kv_ax = (("embed", "qkv") if cfg.num_kv_heads == cfg.num_heads
+             else ("embed", None))
+    a = {"wq": ("embed", "qkv"), "wk": kv_ax, "wv": kv_ax,
+         "wo": ("qkv", "embed")}
+    if cfg.qk_norm:
+        a["q_norm"] = (None,)
+        a["k_norm"] = (None,)
+    return a
+
+
 def _qk_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = QK_NORM_EPS) -> torch.Tensor:
     x32 = x.float()
@@ -55,27 +71,59 @@ def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
-    q = (x @ use_param(p["wq"], dt)).reshape(B, S, h, hd)
-    k = (x @ use_param(p["wk"], dt)).reshape(B, S, kv, hd)
-    v = (x @ use_param(p["wv"], dt)).reshape(B, S, kv, hd)
+    q = split_dim(x @ use_param(p["wq"], dt, "embed", "qkv"), 2, (h, hd))
+    k = split_dim(x @ use_param(p["wk"], dt, "embed", "qkv"), 2, (kv, hd))
+    v = split_dim(x @ use_param(p["wv"], dt, "embed", "qkv"), 2, (kv, hd))
     if cfg.qk_norm:
         q = _qk_norm(q, p["q_norm"])
         k = _qk_norm(k, p["k_norm"])
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if S > 1:
+        # prefill: the head axis sharded (unevenly if need be); decode's
+        # one-token projections keep the cache's layout
+        q = shard(q, "batch", None, "act_heads", None)
+        k = shard(k, "batch", None, "act_heads", None)
+        v = shard(v, "batch", None, "act_heads", None)
     return q, k, v
+
+
+def _attend(q, k, v, window):
+    """``ops.attention``. On DTensors every (batch row, head) is
+    independent: k and v are repeated to the query heads and each shard
+    runs the attention on its local rows and heads (``local_apply``)."""
+    if not is_dtensor(q):
+        return ops.attention(q, k, v, causal=True, window=window)
+    G = q.shape[2] // k.shape[2]
+    k, v = (torch.repeat_interleave(t, G, dim=2) for t in (k, v))
+    ax = ("batch", None, "act_heads", None)
+    return local_apply(lambda a, b, c: ops.attention(
+        a, b, c, causal=True, window=window), (ax, ax, ax), q, k, v)
+
+
+def _attend_cache(cfg, q, k_cache, v_cache, lengths):
+    """``ops.decode_attention``. On DTensors each shard runs it on its
+    local cache rows and kv heads (``local_apply``), q's heads split as
+    the cache's kv heads are: whole where those are whole."""
+    if not is_dtensor(q):
+        return ops.decode_attention(q, k_cache, v_cache, lengths)
+    cache_ax = kv_cache_axes(cfg)["k"]
+    kv_split = resolve_spec(k_cache.shape, cache_ax, q.device_mesh)[2]
+    q_ax = ("cache_batch", cache_ax[2] if kv_split else None, None)
+    return local_apply(ops.decode_attention,
+                       (q_ax, cache_ax, cache_ax, ("cache_batch",)),
+                       q, k_cache, v_cache, lengths)
 
 
 def attention_apply(cfg: ModelConfig, p, x: torch.Tensor,
                     positions: torch.Tensor) -> torch.Tensor:
     """Causal self-attention over the full sequence (prefill)."""
-    B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, positions)
     window = (cfg.sliding_window if cfg.attention == AttentionKind.SLIDING
               else None)
-    out = ops.attention(q, k, v, causal=True, window=window)
-    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
-    return out @ use_param(p["wo"], x.dtype)
+    out = _attend(q, k, v, window)
+    out = shard(merge_dims(out, 2), "batch", None, "act_mlp")
+    return out @ use_param(p["wo"], x.dtype, "qkv", "embed")
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -90,16 +138,30 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def kv_cache_axes(cfg: ModelConfig):
+    """Logical axes of one layer's k and v caches (B, T, kv, hd)."""
+    ax = ("cache_batch", "cache_seq", "cache_heads", None)
+    return {"k": ax, "v": ax}
+
+
 def _write_row(cache: torch.Tensor, slot: torch.Tensor,
-               row: torch.Tensor) -> None:
+               row: torch.Tensor) -> torch.Tensor:
     """cache[b, slot[b]] = row[b] where 0 <= slot[b] < T; other rows are
     dropped. Sync-free: a dropped row writes back what its clamped slot
-    held."""
+    held. Written in place and returned. A DTensor cache (the dry run) is
+    written out of place by a select over the (B, T) positions, which
+    keeps each shard's rows local: DTensor would gather a batch-sharded
+    cache for a scatter with replicated indices."""
     T = cache.shape[1]
-    bidx = torch.arange(cache.shape[0], device=cache.device)
     keep = (slot >= 0) & (slot < T)
+    if is_dtensor(cache):
+        hit = (torch.arange(T, device=cache.device)[None, :]
+               == slot[:, None]) & keep[:, None]
+        return torch.where(hit[:, :, None, None], row[:, None], cache)
+    bidx = torch.arange(cache.shape[0], device=cache.device)
     at = slot.clamp(0, T - 1).long()
     cache[bidx, at] = torch.where(keep[:, None, None], row, cache[bidx, at])
+    return cache
 
 
 def attention_decode(cfg: ModelConfig, p, x: torch.Tensor,
@@ -109,15 +171,14 @@ def attention_decode(cfg: ModelConfig, p, x: torch.Tensor,
     int32. Sliding-window archs use a ring buffer of size
     ``sliding_window`` (the cache position is length % window); full
     attention writes at ``length``."""
-    B = x.shape[0]
-    h, hd = cfg.num_heads, cfg.head_dim
     positions = length[:, None]  # (B,1) absolute position of the new token
     q, k, v = _project_qkv(cfg, p, x, positions)
     T = cache["k"].shape[1]
     slot = length % T if cfg.attention == AttentionKind.SLIDING else length
-    _write_row(cache["k"], slot, k[:, 0])
-    _write_row(cache["v"], slot, v[:, 0])
+    cache = {"k": _write_row(cache["k"], slot, k[:, 0]),
+             "v": _write_row(cache["v"], slot, v[:, 0])}
     eff_len = torch.clamp(length + 1, max=T).to(torch.int32)
-    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], eff_len)
-    y = out.reshape(B, 1, h * hd) @ use_param(p["wo"], x.dtype)
+    out = _attend_cache(cfg, q[:, 0], cache["k"], cache["v"], eff_len)
+    y = merge_dims(out[:, None], 2) @ use_param(p["wo"], x.dtype, "qkv",
+                                                "embed")
     return y, cache

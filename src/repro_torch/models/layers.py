@@ -14,6 +14,12 @@ every call. Where the weight is already in that dtype the cast is a no-op,
 so a model may be handed a compute copy made once (``compute_params`` in
 ``models/transformer.py``): the numbers are identical and each step skips
 re-casting every f32 weight.
+
+Each ``*_axes`` function beside an initialiser returns the logical axes of
+its params (the tuples the reference's ``*_init`` returns second), which
+``launch/sharding.py`` resolves to mesh axes. ``use_param``'s
+``logical_axes`` and the ``shard`` calls sit where the reference's do;
+on plain tensors they change nothing.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.launch.sharding import active_mesh, gather_storage, shard
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -71,15 +78,26 @@ def zeros(shape, dtype) -> torch.Tensor:
                        device="meta" if is_abstract() else None)
 
 
-def use_param(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The weight in the compute dtype (a no-op on a compute copy)."""
-    return w if w.dtype == dtype else w.to(dtype)
+def use_param(w: torch.Tensor, dtype: torch.dtype,
+              *logical_axes) -> torch.Tensor:
+    """The weight in the compute dtype (a no-op on a compute copy), pinned
+    to ``logical_axes`` after the cast when they are given (so a sharded
+    weight's collectives move the compute dtype), then with its ZeRO
+    storage dims gathered for use (``gather_storage``)."""
+    y = w if w.dtype == dtype else w.to(dtype)
+    if not logical_axes or active_mesh() is None:
+        return y
+    return gather_storage(shard(y, *logical_axes), *logical_axes)
 
 
 # ---- RMSNorm ----
 
 def rmsnorm_init(cfg: ModelConfig, dim: int):
     return {"scale": ones((dim,), param_dtype(cfg))}
+
+
+def rmsnorm_axes():
+    return {"scale": ("embed",)}
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -122,6 +140,12 @@ def mlp_init(cfg: ModelConfig, rng: np.random.Generator):
             "w_down": normal(rng, (f, d), s_out, pd)}
 
 
+def mlp_axes(cfg: ModelConfig):
+    gate = ({"w_gate": ("embed", "mlp")}
+            if cfg.mlp_kind in ("swiglu", "geglu") else {})
+    return {**gate, "w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 
@@ -130,10 +154,12 @@ def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     if cfg.mlp_kind in ("swiglu", "geglu"):
         act = F.silu if cfg.mlp_kind == "swiglu" else _gelu
-        h = act(x @ use_param(p["w_gate"], dt)) * (x @ use_param(p["w_up"], dt))
+        h = act(x @ use_param(p["w_gate"], dt, "embed", "mlp")) * (
+            x @ use_param(p["w_up"], dt, "embed", "mlp"))
     else:
-        h = _gelu(x @ use_param(p["w_up"], dt))
-    return h @ use_param(p["w_down"], dt)
+        h = _gelu(x @ use_param(p["w_up"], dt, "embed", "mlp"))
+    h = shard(h, "batch", None, "act_mlp")
+    return h @ use_param(p["w_down"], dt, "mlp", "embed")
 
 
 # ---- Embeddings ----
@@ -141,6 +167,10 @@ def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 def embed_init(cfg: ModelConfig, rng: np.random.Generator):
     return {"embedding": normal(rng, (cfg.vocab_size, cfg.d_model),
                                 1.0 / np.sqrt(cfg.d_model), param_dtype(cfg))}
+
+
+def embed_axes():
+    return {"embedding": ("vocab", "embed")}
 
 
 def embed_apply(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
@@ -151,8 +181,11 @@ def embed_apply(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
 def unembed_apply(cfg: ModelConfig, emb_p, head_p,
                   x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return x @ use_param(emb_p["embedding"], x.dtype).t()
-    return x @ use_param(head_p["w"], x.dtype)
+        w = use_param(emb_p["embedding"], x.dtype).t()
+    else:
+        w = use_param(head_p["w"], x.dtype)
+    # pinned (batch, seq, vocab shard), as the reference pins it
+    return shard(x @ w, "batch", None, "act_vocab")
 
 
 def head_init(cfg: ModelConfig, rng: np.random.Generator):
@@ -160,3 +193,8 @@ def head_init(cfg: ModelConfig, rng: np.random.Generator):
         return {}
     return {"w": normal(rng, (cfg.d_model, cfg.vocab_size),
                         1.0 / np.sqrt(cfg.d_model), param_dtype(cfg))}
+
+
+def head_axes(cfg: ModelConfig):
+    # vocab-only: a d_model shard would make every logit a partial sum
+    return {} if cfg.tie_embeddings else {"w": (None, "vocab")}

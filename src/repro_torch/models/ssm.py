@@ -23,11 +23,22 @@ import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.sharding import merge_dims, shard, split_dim
 from repro_torch.models.layers import normal, param_dtype, use_param, zeros
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))  # jax.nn.softplus
+
+
+def _state_layout(q, k, v, decay):
+    """A decode step's one-token q, k, v (B, H, .) and decay (B, H), laid
+    out as the recurrent state is ("cache_batch", "cache_heads"). On plain
+    tensors the constraints change nothing; on DTensors they spare
+    DTensor's planner a search over the layouts of the step's products."""
+    qkv = tuple(shard(t[:, 0], "cache_batch", "cache_heads", None)
+                for t in (q, k, v))
+    return qkv + (shard(decay[:, 0], "cache_batch", "cache_heads"),)
 
 
 # ---------- Mamba2-style SSD heads (Hymba's parallel SSM branch) ----------
@@ -53,14 +64,20 @@ def ssd_init(cfg: ModelConfig, rng: np.random.Generator):
     }
 
 
+def ssd_axes():
+    return {"w_in": ("embed", "inner"), "w_qk": ("embed", "qkv"),
+            "w_dt": ("embed", None), "a_log": (None,),
+            "w_out": ("inner", "embed")}
+
+
 def _ssd_inputs(cfg: ModelConfig, p, x: torch.Tensor):
     """x (B, S, d) -> q, k (B, S, H, dk), v (B, S, H, dv) in x's dtype and
     the decay (B, S, H) in float32."""
     B, S, _ = x.shape
     H, dk, _, dv = _ssd_dims(cfg)
     dt = x.dtype
-    v = (x @ use_param(p["w_in"], dt)).reshape(B, S, H, dv)
-    qk = (x @ use_param(p["w_qk"], dt)).reshape(B, S, H, 2 * dk)
+    v = split_dim(x @ use_param(p["w_in"], dt), 2, (H, dv))
+    qk = split_dim(x @ use_param(p["w_qk"], dt), 2, (H, 2 * dk))
     k, q = qk[..., :dk], qk[..., dk:]
     # decay in (0, 1): exp(-softplus(dt) * exp(a_log))
     dt_ctrl = _softplus((x @ use_param(p["w_dt"], dt)).float())
@@ -70,11 +87,10 @@ def _ssd_inputs(cfg: ModelConfig, p, x: torch.Tensor):
 
 def ssd_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d)."""
-    B, S, _ = x.shape
-    _, _, inner, _ = _ssd_dims(cfg)
     q, k, v, decay = _ssd_inputs(cfg, p, x)
     y, _ = ops.linear_scan(q, k, v, decay, want_final_state=False)
-    return y.reshape(B, S, inner) @ use_param(p["w_out"], x.dtype)
+    y = shard(merge_dims(y, 2), "batch", None, "act_mlp")
+    return y @ use_param(p["w_out"], x.dtype)
 
 
 def ssd_decode_state(cfg: ModelConfig, batch: int, device="cuda"):
@@ -88,9 +104,8 @@ def ssd_decode(cfg: ModelConfig, p, x: torch.Tensor, state):
     """x (B, 1, d) -> (B, 1, d), new state."""
     B = x.shape[0]
     _, _, inner, _ = _ssd_dims(cfg)
-    q, k, v, decay = _ssd_inputs(cfg, p, x)
-    y, state = ops.linear_scan_step(q[:, 0], k[:, 0], v[:, 0], decay[:, 0],
-                                    state)
+    q, k, v, decay = _state_layout(*_ssd_inputs(cfg, p, x))
+    y, state = ops.linear_scan_step(q, k, v, decay, state)
     return y.reshape(B, 1, inner) @ use_param(p["w_out"], x.dtype), state
 
 
@@ -114,6 +129,11 @@ def mlstm_init(cfg: ModelConfig, rng: np.random.Generator):
     }
 
 
+def mlstm_axes():
+    return {"w_up": ("embed", "inner"), "w_qk": ("embed", "qkv"),
+            "w_if": ("embed", None), "w_down": ("inner", "embed")}
+
+
 def _mlstm_qkvg(cfg: ModelConfig, p, x: torch.Tensor):
     """x (B, S, d) -> q, k (scaled by the input gate), v (B, S, H, dh), the
     output gate z (B, S, inner) and the forget gate (B, S, H) float32."""
@@ -122,8 +142,8 @@ def _mlstm_qkvg(cfg: ModelConfig, p, x: torch.Tensor):
     dt = x.dtype
     uz = x @ use_param(p["w_up"], dt)
     u, z = uz[..., :inner], uz[..., inner:]
-    v = u.reshape(B, S, H, dh)
-    qk = (x @ use_param(p["w_qk"], dt)).reshape(B, S, H, 2 * dh)
+    v = split_dim(u, 2, (H, dh))
+    qk = split_dim(x @ use_param(p["w_qk"], dt), 2, (H, 2 * dh))
     q, k = qk[..., :dh], qk[..., dh:]
     k = k / torch.sqrt(torch.tensor(dh, dtype=dt, device=x.device))
     gates = (x @ use_param(p["w_if"], dt)).float()
@@ -133,11 +153,10 @@ def _mlstm_qkvg(cfg: ModelConfig, p, x: torch.Tensor):
 
 
 def mlstm_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    B, S, _ = x.shape
-    _, inner, _ = _xlstm_dims(cfg)
     q, k, v, z, f_gate = _mlstm_qkvg(cfg, p, x)
     y, _ = ops.linear_scan(q, k, v, f_gate, want_final_state=False)
-    y = y.reshape(B, S, inner) * F.silu(z)
+    y = merge_dims(y, 2) * F.silu(z)
+    y = shard(y, "batch", None, "act_mlp")
     return y @ use_param(p["w_down"], x.dtype)
 
 
@@ -152,8 +171,8 @@ def mlstm_decode(cfg: ModelConfig, p, x: torch.Tensor, state):
     B = x.shape[0]
     _, inner, _ = _xlstm_dims(cfg)
     q, k, v, z, f_gate = _mlstm_qkvg(cfg, p, x)
-    y, state = ops.linear_scan_step(q[:, 0], k[:, 0], v[:, 0], f_gate[:, 0],
-                                    state)
+    q, k, v, f_gate = _state_layout(q, k, v, f_gate)
+    y, state = ops.linear_scan_step(q, k, v, f_gate, state)
     y = y.reshape(B, 1, inner) * F.silu(z)
     return y @ use_param(p["w_down"], x.dtype), state
 
@@ -173,6 +192,11 @@ def slstm_init(cfg: ModelConfig, rng: np.random.Generator):
     }
 
 
+def slstm_axes():
+    return {"w_x": ("embed", "inner"), "r_h": ("heads", None, None),
+            "w_down": ("inner", "embed")}
+
+
 def _slstm_cell(p, carry, xt: torch.Tensor):
     """One sLSTM step with exponential gating and a normaliser state. xt
     (B, 4 inner) input pre-activations; carry (h (B, inner) in xt's dtype,
@@ -180,15 +204,15 @@ def _slstm_cell(p, carry, xt: torch.Tensor):
     h, c, n = carry
     H, dh = p["r_h"].shape[0], p["r_h"].shape[1]
     B = h.shape[0]
-    rec = torch.einsum("bhd,hdf->bhf", h.reshape(B, H, dh).float(),
+    rec = torch.einsum("bhd,hdf->bhf", split_dim(h, 1, (H, dh)).float(),
                        p["r_h"].float())                 # (B, H, 4 dh)
     z, i, f, o = torch.split(rec, dh, dim=-1)
-    xz, xi, xf, xo = (t.reshape(B, H, dh)
+    xz, xi, xf, xo = (split_dim(t, 1, (H, dh))
                       for t in torch.chunk(xt.float(), 4, dim=-1))
     i = torch.exp(torch.clamp(xi + i, max=8.0))
     f = torch.sigmoid(xf + f + 1.0)
-    c = f * c.reshape(B, H, dh) + i * torch.tanh(xz + z)
-    n = f * n.reshape(B, H, dh) + i
+    c = f * split_dim(c, 1, (H, dh)) + i * torch.tanh(xz + z)
+    n = f * split_dim(n, 1, (H, dh)) + i
     h_new = torch.sigmoid(xo + o) * (c / torch.clamp(n, min=1.0))
     return (h_new.reshape(B, -1).to(xt.dtype), c.reshape(B, -1),
             n.reshape(B, -1))
@@ -206,7 +230,8 @@ def slstm_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     for t in range(S):
         carry = _slstm_cell(p, carry, xs[:, t])
         hs.append(carry[0])
-    return torch.stack(hs, 1) @ use_param(p["w_down"], dt)
+    y = shard(torch.stack(hs, 1), "batch", None, "act_mlp")
+    return y @ use_param(p["w_down"], dt)
 
 
 def slstm_decode_state(cfg: ModelConfig, batch: int, dtype, device="cuda"

@@ -46,14 +46,18 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ArchFamily, ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.sharding import is_dtensor, shard
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.attention import (attention_apply, attention_decode,
-                                          attention_init, init_kv_cache)
+from repro_torch.models.attention import (attention_apply, attention_axes,
+                                          attention_decode, attention_init,
+                                          init_kv_cache, kv_cache_axes)
 from repro_torch.models.layers import (abstract_init, compute_dtype,
-                                       embed_apply, embed_init, head_init,
-                                       is_abstract, mlp_apply, mlp_init,
-                                       rmsnorm, rmsnorm_init, unembed_apply)
-from repro_torch.models.moe import moe_apply, moe_init
+                                       embed_apply, embed_axes, embed_init,
+                                       head_axes, head_init, is_abstract,
+                                       mlp_apply, mlp_axes, mlp_init, rmsnorm,
+                                       rmsnorm_axes, rmsnorm_init,
+                                       unembed_apply)
+from repro_torch.models.moe import moe_apply, moe_axes, moe_init
 
 #: Leaves that keep their stored dtype in a compute copy (read in f32).
 F32_LEAVES = ("scale", "q_norm", "k_norm", "a_log", "r_h")
@@ -83,6 +87,23 @@ def _block_init(cfg: ModelConfig, rng: np.random.Generator):
     p["norm1"] = rmsnorm_init(cfg, cfg.d_model)
     p["norm2"] = rmsnorm_init(cfg, cfg.d_model)
     return p
+
+
+def _block_axes(cfg: ModelConfig):
+    fam = cfg.family
+    if fam == ArchFamily.SSM:
+        a = {"mlstm": ssm_mod.mlstm_axes(), "slstm": ssm_mod.slstm_axes()}
+    else:
+        a = {"attn": attention_axes(cfg)}
+        if fam == ArchFamily.MOE:
+            a["moe"] = moe_axes()
+        else:
+            if fam == ArchFamily.HYBRID:
+                a["ssd"] = ssm_mod.ssd_axes()
+            a["mlp"] = mlp_axes(cfg)
+    a["norm1"] = rmsnorm_axes()
+    a["norm2"] = rmsnorm_axes()
+    return a
 
 
 def num_blocks(cfg: ModelConfig) -> int:
@@ -140,6 +161,25 @@ def lm_init(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
     return _map(lambda _n, t: t.to(device), params)
 
 
+def _layers(tree):
+    """Every axes tuple of ``tree`` with the stacked "layers" axis first."""
+    if isinstance(tree, dict):
+        return {k: _layers(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and tree and isinstance(tree[0], tuple):
+        return tuple(_layers(v) for v in tree)
+    return ("layers",) + tree
+
+
+def lm_param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of ``lm_init``'s tree, with no draws: the tree the
+    reference's ``lm_init`` returns second (``launch/sharding.py`` resolves
+    it)."""
+    _check_family(cfg)
+    return {"embed": embed_axes(), "head": head_axes(cfg),
+            "final_norm": rmsnorm_axes(),
+            "blocks": _layers(_block_axes(cfg))}
+
+
 def lm_param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """``lm_init``'s tree as ``meta`` tensors (shapes and dtypes), with no
     draws and no allocation."""
@@ -156,6 +196,7 @@ def compute_params(cfg: ModelConfig, params: Dict[str, Any]) -> Dict[str, Any]:
 def _block_apply(cfg: ModelConfig, p, x, positions):
     fam = cfg.family
     eps = cfg.norm_eps
+    x = shard(x, "batch", None, "act_embed")
     if fam == ArchFamily.SSM:
         x = x + ssm_mod.mlstm_apply(cfg, p["mlstm"],
                                     rmsnorm(p["norm1"], x, eps))
@@ -207,7 +248,7 @@ def lm_apply(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
                        embed_apply(cfg, params["embed"], tokens)], dim=1)
     else:
         x = embed_apply(cfg, params["embed"], tokens)
-    x = _scaled(cfg, x)
+    x = shard(_scaled(cfg, x), "batch", None, "act_embed")
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -227,9 +268,16 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
                   ) -> torch.Tensor:
     """(B, S) nll in float32: logsumexp minus the label's logit. The
     reference sums a one-hot mask over the vocabulary for the label logit
-    (sharding-friendly); a gather picks the same number."""
+    (sharding-friendly); a gather picks the same number without another
+    (B, S, vocab) buffer. A DTensor (vocab-sharded logits) takes the
+    reference's masked sum, which reduces each shard first."""
     lg = logits.float()
-    label = lg.gather(-1, targets[..., None].long())[..., 0]
+    if is_dtensor(lg):
+        vocab = torch.arange(lg.shape[-1], device=lg.device)
+        label = torch.where(vocab == targets[..., None].long(), lg,
+                            0.0).sum(-1)
+    else:
+        label = lg.gather(-1, targets[..., None].long())[..., 0]
     return torch.logsumexp(lg, dim=-1) - label
 
 
@@ -273,6 +321,20 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     state = {"kv": init_kv_cache(cfg, batch, max_len, dt, device)}
     if fam == ArchFamily.HYBRID:
         state["ssd"] = stack(ssm_mod.ssd_decode_state(cfg, batch, "meta"))
+    return state
+
+
+def decode_state_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical axes of ``init_decode_state``'s tree (the reference's)."""
+    _check_family(cfg)
+    fam = cfg.family
+    cache = ("layers", "cache_batch", "cache_heads")
+    if fam == ArchFamily.SSM:
+        return {"mlstm": (cache + (None, None), cache + (None,)),
+                "slstm": (("layers", "cache_batch", "inner"),) * 3}
+    state = {"kv": _layers(kv_cache_axes(cfg))}
+    if fam == ArchFamily.HYBRID:
+        state["ssd"] = (cache + (None, None), cache + (None,))
     return state
 
 

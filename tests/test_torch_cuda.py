@@ -1,7 +1,8 @@
 """The CUDA kernels (plan scoring, compressed-FedAvg scatter-add, flash
 and decode attention, the MoE grouped matmul, the linear scan, RMSNorm)
-against their plain PyTorch versions, on the card, and the fleet-sharded
-scoring and fused searches (module 7) against the single lane. Marked
+against their plain PyTorch versions, on the card, the fleet-sharded
+scoring and fused searches (module 7) against the single lane, and the
+expert-parallel MoE block's ``emulate`` executor (module 10.d). Marked
 ``requires_cuda``: without a card (or nvcc) every test skips, decided
 inside the fixture. Run on a GPU machine with
 
@@ -1107,3 +1108,39 @@ def test_scatter_add_crowded_position_many_seeds(cuda, seed):
     idx = torch.full((10, 3000), T + 77, dtype=torch.int64, device=cuda)
     assert sa.kernel_variant(10, 3000, 4 * T) == "atomic"
     check_scatter(vals, idx, w, 4 * T)
+
+
+# ---- the expert-parallel MoE path (module 10.d) ----
+
+@pytest.mark.parametrize("layout", [(1, 4), (2, 4)], ids=["1x4", "2x4"])
+def test_moe_emulate_launches_per_block_and_matches_plain(cuda, layout):
+    """``emulate`` on the card: kernel 2.5 three times a (data, model)
+    block on its E_local experts, the output within the grouped matmul's
+    bf16 tolerance of the same layout under the plain version."""
+    import dataclasses
+
+    from repro_torch.config import MeshConfig
+    from repro_torch.configs import dbrx_132b
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sharding import use_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import compute_params
+
+    cfg = dataclasses.replace(dbrx_132b.reduced(), dtype="bfloat16")
+    p = compute_params(cfg, {"blocks": moe.moe_init(
+        cfg, np.random.default_rng(3))})["blocks"]
+    p = {k: v.to(cuda) for k, v in p.items()}
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((4, 64, cfg.d_model), device=cuda, generator=g,
+                    dtype=torch.bfloat16)
+    with use_mesh(MeshConfig(layout, ("data", "model"))), torch.no_grad():
+        before = gmm.launches
+        got = moe.moe_apply(cfg, p, x)
+        torch.cuda.synchronize()
+        assert gmm.launches - before == 3 * layout[0] * layout[1]
+        with ops.default_impl("ref"):
+            exp = moe.moe_apply(cfg, p, x)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               exp.float().cpu().numpy(), atol=2e-2,
+                               rtol=2e-2)
