@@ -49,9 +49,11 @@ exits non-zero with a traceback, and no phase's failure is caught.
    (``scatter_add.serves``) held to the same tolerance, of the plain
    version and of one ``index_add_`` call (the library yardstick, never
    called by the port), beside the bound. The stream "every entry on one
-   position" again from CROWDED_SEEDS seeds: each seed's ``atomic`` output
-   held to the plain version at the same limit, and the largest gap of
-   each side to the float64 sum of the same terms.
+   position" again from CROWDED_SEEDS seeds, run CROWDED_REPEATS times:
+   each run's ``atomic`` output held to the plain version at the same
+   limit; per seed |exp|, the limit, the worst gap over the runs and its
+   ratio to the limit (the largest ratio and its seed go to the kernels
+   line), and each side's gap to the float64 sum of the same terms.
 5. fl-main — real federated training through ``ExperimentSpec.build(
    device="cuda").run()``: the ``real-fl-two-job`` preset (LeNet-5 + CNN-B,
    40 devices, greedy) for 3 rounds and one VGG16 job (100 devices,
@@ -87,8 +89,9 @@ exits non-zero with a traceback, and no phase's failure is caught.
    plain version and one ``scaled_dot_product_attention`` call (the
    library yardstick, never called by the port), beside the bound, and,
    for bf16 decode rows, of the simt kernel, the design before the tma
-   one, held to the same tolerance; the flash autograd.Function's
-   gradient against the plain one.
+   one, and for bf16 flash rows at D = 256, of the mma kernel, the design
+   before the wgmma one there, each held to the same tolerance; the flash
+   autograd.Function's gradient against the plain one.
 7. lm-serve — qwen3-1.7b at full width (28 layers, random weights drawn
    on the card from a seed by ``draw_params``, lm_init's distributions
    without its numpy draws) through the port's entry points: one
@@ -271,7 +274,7 @@ exits non-zero with a traceback, and no phase's failure is caught.
    filled 4096-row cache at lengths 4000-4015 (decode 48 a step, all tma).
    (b) paligemma-3b (18 layers, 8 heads of 256 over one kv-head): one
    prefill of 256 patch embeddings and 3840 text tokens a row (flash 18,
-   all mma), the serve loop of phase 7 (decode 18 a step, all tma). For
+   all wgmma), the serve loop of phase 7 (decode 18 a step, all tma). For
    each: prefill ms and tokens a second, a long-cache step, their
    torch.profiler splits and idle shares, and the whole model against
    itself under ``set_default_impl("ref")`` (bf16 and f32 prefill on the
@@ -811,33 +814,60 @@ def edge_streams(torch, dev):
 
 
 CROWDED_SEEDS = 20
+CROWDED_REPEATS = 5
 
 
 def crowded_gaps(torch, dev) -> dict:
     """The edge stream "every entry on one position" (10 x 3,000 randn
-    entries onto one float) drawn from CROWDED_SEEDS seeds: each seed's
-    kernel output held to the plain version at SCATTER_TOL, and the gap of
-    each side to the float64 sum of the same terms, the max over seeds."""
+    entries onto one float) drawn from CROWDED_SEEDS seeds, the stream run
+    CROWDED_REPEATS times (the atomic variant's order changes from run to
+    run). Each run holds each seed's kernel output to the plain version at
+    SCATTER_TOL; per seed: |exp| (the plain value), the limit SCATTER_TOL
+    (1 + |exp|), the worst gap to the plain version over the runs and its
+    ratio to the limit, and each side's gap to the float64 sum of the same
+    terms. The largest ratio and its seed lead."""
     from repro_torch.kernels import scatter_add as sa
 
     T = sa.TILE
-    gaps = {"kernel": [], "plain": [], "kernel_vs_plain": []}
-    for seed in range(CROWDED_SEEDS):
-        g = torch.Generator(device=dev).manual_seed(7700 + seed)
+    seeds = []
+    for seed in range(7700, 7700 + CROWDED_SEEDS):
+        g = torch.Generator(device=dev).manual_seed(seed)
         vals = torch.randn((10, 3000), device=dev, generator=g)
         w = torch.rand(10, device=dev, generator=g) + 0.1
         idx = torch.full((10, 3000), T + 77, dtype=torch.int64, device=dev)
-        got = sa.launch_variant("atomic", vals, idx, w, 4 * T)
         exp = sa.scatter_add_ref(vals, idx, w, 4 * T)
         exact = float((vals.double() * w.double()[:, None]).sum())
-        gaps["kernel_vs_plain"].append(check_close(
-            got, exp, f"scatter_add every entry on one position, seed "
-            f"{7700 + seed}"))
-        gaps["kernel"].append(abs(float(got[T + 77]) - exact))
-        gaps["plain"].append(abs(float(exp[T + 77]) - exact))
-    return dict(seeds=CROWDED_SEEDS, tol=SCATTER_TOL,
-                **{f"max_{k}_gap": max(v) for k, v in gaps.items()},
-                **{f"{k}_gaps": v for k, v in gaps.items()})
+        plain = float(exp[T + 77])
+        limit = SCATTER_TOL * (1.0 + abs(plain))
+        row = dict(seed=seed, abs_exp=abs(plain), limit=limit, gap=0.0,
+                   ratio=0.0, kernel_values=[],
+                   plain_vs_f64=abs(plain - exact), kernel_vs_f64=0.0)
+        seeds.append(dict(seed=seed, vals=vals, w=w, idx=idx, exp=exp,
+                          f64=exact, row=row))
+    for _ in range(CROWDED_REPEATS):
+        for c in seeds:
+            got = sa.launch_variant("atomic", c["vals"], c["idx"], c["w"],
+                                    4 * T)
+            gap = check_close(got, c["exp"], "scatter_add every entry on "
+                              f"one position, seed {c['seed']}")
+            r = c["row"]
+            value = float(got[T + 77])
+            r["kernel_values"].append(value)
+            r["gap"] = max(r["gap"], gap)
+            r["ratio"] = r["gap"] / r["limit"]
+            r["kernel_vs_f64"] = max(r["kernel_vs_f64"],
+                                     abs(value - c["f64"]))
+    rows = [c["row"] for c in seeds]
+    for r in rows:
+        r["distinct_values"] = len(set(r.pop("kernel_values")))
+    worst = max(rows, key=lambda r: r["ratio"])
+    return dict(seeds=CROWDED_SEEDS, repeats=CROWDED_REPEATS, tol=SCATTER_TOL,
+                max_ratio=worst["ratio"], max_ratio_seed=worst["seed"],
+                max_gap=max(r["gap"] for r in rows),
+                max_kernel_vs_f64=max(r["kernel_vs_f64"] for r in rows),
+                max_plain_vs_f64=max(r["plain_vs_f64"] for r in rows),
+                max_distinct_values=max(r["distinct_values"] for r in rows),
+                per_seed=rows)
 
 
 def scatter_bound(n, k, idx_bytes, size):
@@ -1303,6 +1333,14 @@ def sdpa_decode(torch, q, k, v, length):
         attn_mask=mask)
 
 
+def flash_as(torch, fa, variant, q, k, v, causal, window):
+    """One launch of the named flash variant (the old design, ``mma`` at
+    D = 256, beside the one ``kernel_variant`` picks), never counted."""
+    out = torch.empty_like(q)
+    fa.launch_variant(variant, q, k, v, out, causal, window)
+    return out
+
+
 def decode_as(torch, da, variant, q, k, v, length):
     """One launch of the named decode variant (the old design, ``simt``,
     beside the one ``kernel_variant`` picks), never counted."""
@@ -1349,6 +1387,14 @@ def phase_lm_kernels(torch, dev) -> dict:
                                      "variant did not launch")
             err = attn_close(got, exp, ATTN_TOL[dname][0],
                              f"flash {label} {dname}")
+            # the other design that serves the shape (mma at D = 256 in
+            # bf16), held to the plain version too
+            other = next((o for o in fa.VARIANTS
+                          if o != variant and fa.serves(o, dt, D)), None)
+            if other:
+                attn_close(flash_as(torch, fa, other, q, k, v, causal,
+                                    window), exp, ATTN_TOL[dname][0],
+                           f"flash {label} {dname} ({other})")
             del exp
             row_err = None
             if dname == "bfloat16":
@@ -1364,6 +1410,10 @@ def phase_lm_kernels(torch, dev) -> dict:
             plain_ms = cuda_time_ms(
                 torch, lambda: fa.attention_ref(q, k, v, causal, window),
                 inner=1 if big else 3, reps=3)
+            other_ms = None if other is None else cuda_time_ms(
+                torch, lambda: flash_as(torch, fa, other, q, k, v, causal,
+                                        window),
+                inner=3 if big else 10, reps=5)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             sdpa = dict(is_causal=causal, enable_gqa=True)
             if window is not None:  # a boolean mask, built once; SDPA's
@@ -1392,7 +1442,7 @@ def phase_lm_kernels(torch, dev) -> dict:
                 max_abs_err=err, bf16_row_err_vs_f32=row_err,
                 kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                pairs=pairs * B * H,
+                other_variant=other, other_ms=other_ms, pairs=pairs * B * H,
                 tflops=4 * D * pairs * H * B / (kernel_ms * 1e9)))
             del q, k, v
             torch.cuda.empty_cache()
@@ -4600,7 +4650,7 @@ def phase_lm_train(torch, dev, smi: str, host_params) -> dict:
 #: arch -> (draw_params seed, the flash variant its head dim takes): the
 #: audio and VLM families (module 10.c) at full width and depth.
 FRONTEND_ARCHS = {"musicgen-medium": (1700, "wgmma"),
-                  "paligemma-3b": (1710, "mma")}
+                  "paligemma-3b": (1710, "wgmma")}
 FRONTEND_PREFILL = (2, 4096)   # (B, S); paligemma's S holds its 256 patches
 FRONTEND_STEPS = 16            # musicgen's decode steps on frame embeddings
 FRONTEND_TRAIN = {"musicgen-medium": (2, 4096), "paligemma-3b": (2, 4096)}
@@ -4986,7 +5036,7 @@ def main(argv=None) -> int:
         library_ms=fc["library_ms"],
         launches_by_variant=fl_main["compressed"]["launches_by_variant"],
         crowded={k: v for k, v in fl_kern["crowded"].items()
-                 if not k.endswith("_gaps")},
+                 if k != "per_seed"},
         shapes=fl_kern["scatter_add"], **variant_keys(fc))]
     flash_by_path = {
         "lm-serve qwen3-1.7b prefill (7)": lm_serve["prefill"]["flash_launches"],

@@ -19,33 +19,54 @@
 // Three variants; the caller names one (kernels/flash_attention.py::
 // kernel_variant) and a variant that cannot serve the shape is refused,
 // never replaced:
-// - wgmma (bf16, D in {64, 112, 128}; every model's prefill): FlashAttention-3
-//   shaped. One block of three warpgroups per (128 query rows, head,
-//   batch). A producer warp loads the Q tile once and streams K and V
-//   tiles of 128 keys through a 2-stage ring with TMA (q a 4-D tensor map
-//   (D, H, S, B), k and v (D, KV, S, B); each 128-row tile is D / 64 boxes
-//   of 64 columns with the 128-byte swizzle); each stage has a full and an
-//   empty mbarrier for K and for V. Two consumer warpgroups each own 64
-//   query rows and take turns at the tensor cores (pingpong, over named
-//   barriers), so one's softmax overlaps the other's products. S = Q K^T
-//   is a wgmma with both operands in shared memory (K is K-major); the
-//   online softmax runs on the f32 accumulator in registers, in base 2
-//   (log2(e) folded into the scale, ex2.approx); O += P V is a wgmma with
-//   P in registers, converted from the S accumulator to bf16 fragments in
-//   place, and V read as an MN-major operand (the transposed form).
-//   setmaxnreg moves registers from the producer to the consumers. TMA
-//   zero-fills rows past S; keys past S are masked and rows past S not
-//   stored. D = 112 (kimi-k2) runs as D = 128: the tensor maps keep D = 112
-//   columns, so the second 64-column box of every tile reads columns
-//   112-127 as zeros, Q K^T over 128 columns is exact, P V runs at N = 128
-//   and only 112 columns are stored; the scale is 1 / sqrt(112). D = 256
-//   stays on mma: its accumulators do not fit beside S.
+// - wgmma (bf16, D in {64, 112, 128, 256}; every model's prefill):
+//   FlashAttention-3 shaped. One block per (128 query rows, head, batch).
+//   Q is loaded once and K and V tiles of 128 keys (64 at D = 256) stream
+//   through a 2-stage ring with TMA (q a 4-D tensor map (D, H, S, B), k
+//   and v (D, KV, S, B); each tile is D / 64 boxes of 64 columns with the
+//   128-byte swizzle; each stage has a full mbarrier for K and for V). Two
+//   consumer warpgroups each own 64 query rows and take turns at the
+//   tensor cores (pingpong, over named barriers), so one's softmax overlaps
+//   the other's products. S = Q K^T is a wgmma with both operands in
+//   shared memory (K is K-major); the online softmax runs on the f32
+//   accumulator in registers, in base 2 (log2(e) folded into the scale,
+//   ex2.approx); O += P V is a wgmma with P in registers, converted from
+//   the S accumulator to bf16 fragments in place, and V read as an
+//   MN-major operand (the transposed form). TMA zero-fills rows past S;
+//   keys past S are masked and rows past S not stored. D = 112 (kimi-k2)
+//   runs as D = 128: the tensor maps keep D = 112 columns, so the second
+//   64-column box of every tile reads columns 112-127 as zeros, Q K^T over
+//   128 columns is exact, P V runs at N = 128 and only 112 columns are
+//   stored; the scale is 1 / sqrt(112).
+//   At D in {112, 128} a producer warpgroup (384 threads a block) streams
+//   K and V, waiting on an empty mbarrier per stage that the consumers
+//   arrive on. At D = 64 and 256 the block is the two consumer warpgroups
+//   alone (below). At D = 64 that ran musicgen-medium's and hymba-1.5b's
+//   prefills 12-21% faster than with a producer; at D = 112 and 128 it
+//   ran 3-4% slower (PERF.md).
+//   ptxas gives a thread at most the register file over the block's
+//   threads (168 of 384), and setmaxnreg did not raise that for the code
+//   after it: with a producer warpgroup and setmaxnreg 240, the D = 256
+//   consumers were compiled to 168 registers, spilled 272-296 bytes and
+//   serialized their wgmma (so did a lone producer warp, 288 threads).
+//   D = 256 (paligemma-3b) needs about 200: its O (64 x 256 f32) is 128
+//   registers a thread, S and P of 64 keys 32 + 16 more. So at D = 256 the
+//   block is the two consumer warpgroups alone (256 threads, up to 255
+//   registers): thread 0 loads Q and the first two stages, and the second
+//   warpgroup to release a stage (a shared-memory count) loads the stage's
+//   next tile. Its K / V tiles hold 64 keys: 128 keys would take S and P
+//   to 64 + 32 registers, and Q (64 KB) with two stages of 128-key K and V
+//   would need 320 KB of the 227 KB of shared memory (with 64 keys, 192
+//   KB). S = Q K^T is then a wgmma at N = 64 and O += P V one at N = 256
+//   per 16 keys.
 // - mma (bf16, D in {16, 32, 256}; 64, 112 and 128 are the wgmma variant's
-//   alone, so the entry refuses mma there): mma.sync.m16n8k16,
-//   FlashAttention-2 style: one block of 4 warps per (64 query rows, head,
-//   batch), 16 rows a warp; K and V tiles of 64 keys staged in shared
-//   memory (rows padded by 8 elements against bank conflicts); S, the
-//   mask, the online softmax and O = O * alpha + P V in registers.
+//   alone, so the entry refuses mma there; at D = 256 no model path takes
+//   it, and kernels/flash_attention.py::launch_variant runs it beside
+//   wgmma): mma.sync.m16n8k16, FlashAttention-2 style: one block of 4
+//   warps per (64 query rows, head, batch), 16 rows a warp; K and V tiles
+//   of 64 keys staged in shared memory (rows padded by 8 elements against
+//   bank conflicts); S, the mask, the online softmax and O = O * alpha + P
+//   V in registers.
 // - simt (f32, full f32, no TF32): one block per (16 query rows, head,
 //   batch), 8 threads a row, each owning D / 8 columns of q and of the
 //   accumulator; keys stream through shared memory in tiles of 32 with a
@@ -270,20 +291,59 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 // ---- bf16: wgmma + TMA ----------------------------------------------------
 
 constexpr int kWRows = 128;     // query rows per block, 64 per consumer warpgroup
-constexpr int kWKeys = 128;     // keys per K / V tile
 constexpr int kWStages = 2;
-constexpr int kWThreads = 384;  // producer warpgroup + 2 consumers
-constexpr int kWBox = 128 * 128;  // one 128-row x 64-column box, 16 KB
+constexpr int kWRowBytes = 128;  // a box row: 64 bf16 columns
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The tile of head dim D: DP = D rounded up to 64 is the width computed, NB
+// boxes of 64 columns; KEYS keys a K / V tile (64 at D = 256, see the top).
+// A Q tile is NB boxes of 128 rows (16 KB each), a K or V tile NB boxes of
+// KEYS rows. PRODUCER: a producer warpgroup streams K and V (384 threads);
+// without one (D = 64 and 256) the block is the two consumer warpgroups
+// (256).
 template <int D>
-constexpr size_t wgmma_smem_bytes() {
-  return 1024 + static_cast<size_t>(1 + 2 * kWStages) * (D / 64) * kWBox +
-         (1 + 4 * kWStages) * sizeof(uint64_t);
-}
+struct WTile {
+  static constexpr int DP = (D + 63) / 64 * 64;
+  static constexpr int NB = DP / 64;
+  static constexpr int KEYS = DP > 128 ? 64 : 128;
+  static constexpr bool PRODUCER = DP == 128;
+  static constexpr int THREADS = PRODUCER ? 384 : 256;
+  static constexpr int QBOX = kWRows * kWRowBytes;
+  static constexpr int KBOX = KEYS * kWRowBytes;
+  static constexpr int QTILE = NB * QBOX;
+  static constexpr int KTILE = NB * KBOX;
+  static constexpr size_t SMEM = 1024 + QTILE + 2 * kWStages * static_cast<size_t>(KTILE) +
+                                 (1 + 4 * kWStages) * sizeof(uint64_t) +
+                                 2 * kWStages * sizeof(int);
+};
+
+template <int KEYS>
+struct QkMma;  // S (64 x KEYS) += Q (64 x 16) K^T (16 x KEYS), both K-major
+
+template <>
+struct QkMma<128> {
+  static __device__ __forceinline__ void run(float (&s)[64], uint64_t a, uint64_t b, int acc) {
+    hopper::wgmma_m64n128k16_ss(s, a, b, acc);
+  }
+};
+
+template <>
+struct QkMma<64> {
+  static __device__ __forceinline__ void run(float (&s)[32], uint64_t a, uint64_t b, int acc) {
+    hopper::wgmma_m64n64k16_ss(s, a, b, acc);
+  }
+};
 
 template <int D>
 struct PvMma;  // O (64 x D) += P (64 x 16, registers) V (16 x D, MN-major)
+
+template <>
+struct PvMma<256> {
+  static __device__ __forceinline__ void run(float (&o)[128], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t d) {
+    hopper::wgmma_m64n256k16_rs_tb(o, a0, a1, a2, a3, d, 1);
+  }
+};
 
 template <>
 struct PvMma<128> {
@@ -301,16 +361,19 @@ struct PvMma<64> {
   }
 };
 
-// S = Q K^T for one key tile (64 x 128 per warpgroup), both operands
+// S = Q K^T for one key tile (64 x KEYS per warpgroup), both operands
 // K-major in shared memory; committed as one group.
 // Descriptors are a base plus a constant step: the start address moves by
-// 32 bytes per 16 values of K inside a box and by kWBox to the next box.
+// 32 bytes per 16 values of K inside a box and by a box to the next one.
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&sc)[64], uint64_t qd, uint64_t kd) {
+__device__ __forceinline__ void issue_qk(float (&sc)[WTile<D>::KEYS / 2], uint64_t qd,
+                                         uint64_t kd) {
+  using T = WTile<D>;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint64_t step = ((kk / 4) * kWBox + (kk % 4) * 32) >> 4;
-    hopper::wgmma_m64n128k16_ss(sc, qd + step, kd + step, kk > 0);
+  for (int kk = 0; kk < T::DP / 16; ++kk) {
+    const int in_box = (kk % 4) * 32;
+    QkMma<T::KEYS>::run(sc, qd + (((kk / 4) * T::QBOX + in_box) >> 4),
+                        kd + (((kk / 4) * T::KBOX + in_box) >> 4), kk > 0);
   }
   hopper::wgmma_commit();
 }
@@ -318,12 +381,13 @@ __device__ __forceinline__ void issue_qk(float (&sc)[64], uint64_t qd, uint64_t 
 // O += P V for one key tile: P from registers, V MN-major in shared
 // memory; committed as one group.
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[32],
-                                         uint64_t vd) {
+__device__ __forceinline__ void issue_pv(float (&o)[WTile<D>::DP / 2],
+                                         const uint32_t (&p)[WTile<D>::KEYS / 4], uint64_t vd) {
+  using T = WTile<D>;
 #pragma unroll
-  for (int kk = 0; kk < kWKeys / 16; ++kk)
-    PvMma<D>::run(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-                  vd + ((kk * 16 * 128) >> 4));
+  for (int kk = 0; kk < T::KEYS / 16; ++kk)
+    PvMma<T::DP>::run(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                      vd + ((kk * 16 * kWRowBytes) >> 4));
   hopper::wgmma_commit();
 }
 
@@ -341,17 +405,18 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// S (one 64 x 128 tile, in the accumulator layout) -> f32 probabilities in
-// place, updating the row state; the max is taken over the scaled logits.
-// On an edge tile the logits are scaled first, and each row keeps the keys
-// kt + [lo, hi] of the tile while every other logit takes -1e30; elsewhere
-// nothing is masked and the scale folds into the exponent's FMA.
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& r, float scale_log2,
-                                             bool edge, int kt, int row_a, int S, int causal,
-                                             int window, int lane) {
+// S (one 64 x KEYS tile, in the accumulator layout) -> f32 probabilities
+// in place, updating the row state; the max is taken over the scaled
+// logits. On an edge tile the logits are scaled first, and each row keeps
+// the keys kt + [lo, hi] of the tile while every other logit takes -1e30;
+// elsewhere nothing is masked and the scale folds into the exponent's FMA.
+template <int KEYS>
+__device__ __forceinline__ void softmax_tile(float (&sc)[KEYS / 2], RowState& r,
+                                             float scale_log2, bool edge, int kt, int row_a,
+                                             int S, int causal, int window, int lane) {
   float mul = scale_log2;  // what the exponent's FMA still applies
   if (edge) {
-    int hi_a = S - 1 - kt, hi_b = hi_a, lo_a = -kWKeys, lo_b = -kWKeys;
+    int hi_a = S - 1 - kt, hi_b = hi_a, lo_a = -KEYS, lo_b = -KEYS;
     if (causal) {
       hi_a = min(hi_a, row_a - kt);
       hi_b = min(hi_b, row_a + 8 - kt);
@@ -361,7 +426,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& r, float
       lo_b = lo_a + 8;
     }
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < KEYS / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 2 * (lane % 4) + 8 * j + (e & 1);
@@ -373,7 +438,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& r, float
   }
   float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < KEYS / 8; ++j) {
     mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
     mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
   }
@@ -389,7 +454,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& r, float
   r.m_b = mn_b;
   float sum_a = 0.0f, sum_b = 0.0f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < KEYS / 8; ++j) {
     sc[4 * j] = fast_exp2(fmaf(sc[4 * j], mul, -mn_a));
     sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], mul, -mn_a));
     sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], mul, -mn_b));
@@ -402,17 +467,19 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& r, float
 }
 
 // Whether some (row, key) pair of a warpgroup's 64 rows from qw0 and the
-// 128 keys from kt is masked (or past S).
+// KEYS keys from kt is masked (or past S).
+template <int KEYS>
 __device__ __forceinline__ bool edge_tile(int kt, int qw0, int S, int causal, int window) {
-  return (kt + kWKeys > S) || (causal && kt + kWKeys - 1 > qw0) ||
+  return (kt + KEYS > S) || (causal && kt + KEYS - 1 > qw0) ||
          (window > 0 && qw0 + 63 - kt >= window);
 }
 
 // f32 probabilities -> the bf16 A fragments of P (4 registers per 16 keys):
 // n-block j of row a lands in p[2j], of row b in p[2j + 1].
-__device__ __forceinline__ void to_frags(const float (&sc)[64], uint32_t (&p)[32]) {
+template <int KEYS>
+__device__ __forceinline__ void to_frags(const float (&sc)[KEYS / 2], uint32_t (&p)[KEYS / 4]) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < KEYS / 8; ++j) {
     p[2 * j] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
     p[2 * j + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
   }
@@ -442,33 +509,54 @@ __device__ __forceinline__ void give_turn(int c) {
   else hopper::named_arrive<1, 256>();
 }
 
+// One K or V tile (keys kt ..) into a stage, its bytes announced on `full`.
+template <int D>
+__device__ __forceinline__ void load_kv(uint8_t* dst, const CUtensorMap* map, uint64_t* full,
+                                        int kvh, int kt, int b) {
+  using T = WTile<D>;
+  hopper::mbar_expect_tx(full, T::KTILE);
+#pragma unroll
+  for (int j = 0; j < T::NB; ++j)
+    hopper::tma_load_4d(dst + j * T::KBOX, map, full, 64 * j, kvh, kt, b);
+}
+
+// Counts a consumer warpgroup's release of a stage (a shared-memory count
+// that grows by 2 a tile): true for the second of the two warpgroups, the
+// one that refills the stage.
+__device__ __forceinline__ bool second_release(int* count) {
+  return (atomicAdd(count, 1) & 1) != 0;
+}
+
 // grid (ceil(S / 128), H, B)
 //
 // The two consumer warpgroups take turns at the tensor cores
 // (FlashAttention-3's "pingpong", over named barriers 1 and 2): a
 // warpgroup issues its S = Q K^T only after the other has issued its own,
 // so one's softmax runs while the other's products do. K is released as
-// soon as S is computed and V after the PV product, each by its own empty
-// barrier, so the producer refills K while V is still in use.
-// D is the head dim stored; DP = D rounded up to 64 is the width computed.
+// soon as S is computed and V after the PV product, so K's stage refills
+// while V is still in use: with a producer, each release is an arrival on
+// the stage's empty barrier, which the producer waits for; without one,
+// the second warpgroup to release a stage loads the stage's next tile.
+// D is the head dim stored; WTile<D>::DP is the width computed.
 template <int D>
-__global__ void __launch_bounds__(kWThreads, 1)
+__global__ void __launch_bounds__(WTile<D>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
                    int S, int H, int KV, int causal, int window, float scale_log2) {
-  constexpr int DP = (D + 63) / 64 * 64;
-  constexpr int NB = DP / 64;           // 64-column boxes per tile
-  constexpr int TILE = NB * kWBox;      // bytes of a 128-row tile
+  using T = WTile<D>;
+  constexpr int KEYS = T::KEYS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = hopper::align1024(smem_raw);
-  uint8_t* ks = qs + TILE;                  // kWStages K tiles
-  uint8_t* vs = ks + kWStages * TILE;       // kWStages V tiles
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kWStages * TILE);
+  uint8_t* ks = qs + T::QTILE;                  // kWStages K tiles
+  uint8_t* vs = ks + kWStages * T::KTILE;       // kWStages V tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kWStages * T::KTILE);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + kWStages;
-  uint64_t* k_empty = v_full + kWStages;
+  uint64_t* k_empty = v_full + kWStages;        // with a producer
   uint64_t* v_empty = k_empty + kWStages;
+  int* k_released = reinterpret_cast<int*>(v_empty + kWStages);  // without one
+  int* v_released = k_released + kWStages;
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // most keys first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -478,9 +566,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   if (causal) k_end = min(S, q0 + kWRows);
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q0 - (window - 1));
-  k_begin = (k_begin / kWKeys) * kWKeys;
-  const int ntiles = (k_end - k_begin + kWKeys - 1) / kWKeys;
-  const int wg = threadIdx.x / 128;
+  k_begin = (k_begin / KEYS) * KEYS;
+  const int ntiles = (k_end - k_begin + KEYS - 1) / KEYS;
+  // the warpgroup, made warp-uniform for the compiler by a shuffle
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_full, 1);
@@ -489,103 +578,119 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       hopper::mbar_init(&v_full[s], 1);
       hopper::mbar_init(&k_empty[s], 2);  // one arrival per consumer warpgroup
       hopper::mbar_init(&v_empty[s], 2);
+      k_released[s] = v_released[s] = 0;
     }
     hopper::fence_mbar_init();
   }
   __syncthreads();
 
-  if (wg == 0) {  // producer: one thread issues every copy
-    hopper::setmaxnreg_dec<24>();
-    if (threadIdx.x == 0) {
-      hopper::prefetch_map(&qmap);
-      hopper::prefetch_map(&kmap);
-      hopper::prefetch_map(&vmap);
-      hopper::mbar_expect_tx(q_full, TILE);
+  if (threadIdx.x == 0) {  // Q, and without a producer the first stages
+    hopper::prefetch_map(&qmap);
+    hopper::prefetch_map(&kmap);
+    hopper::prefetch_map(&vmap);
+    hopper::mbar_expect_tx(q_full, T::QTILE);
 #pragma unroll
-      for (int j = 0; j < NB; ++j)
-        hopper::tma_load_4d(qs + j * kWBox, &qmap, q_full, 64 * j, h, q0, b);
-      for (int it = 0; it < ntiles; ++it) {
-        const int s = it % kWStages;
-        const uint32_t parity = ((it / kWStages) - 1) & 1;
-        const int kt = k_begin + it * kWKeys;
-        if (it >= kWStages) hopper::mbar_wait(&k_empty[s], parity);
-        hopper::mbar_expect_tx(&k_full[s], TILE);
-#pragma unroll
-        for (int j = 0; j < NB; ++j)
-          hopper::tma_load_4d(ks + s * TILE + j * kWBox, &kmap, &k_full[s], 64 * j, kvh, kt, b);
-        if (it >= kWStages) hopper::mbar_wait(&v_empty[s], parity);
-        hopper::mbar_expect_tx(&v_full[s], TILE);
-#pragma unroll
-        for (int j = 0; j < NB; ++j)
-          hopper::tma_load_4d(vs + s * TILE + j * kWBox, &vmap, &v_full[s], 64 * j, kvh, kt, b);
+    for (int j = 0; j < T::NB; ++j)
+      hopper::tma_load_4d(qs + j * T::QBOX, &qmap, q_full, 64 * j, h, q0, b);
+    if constexpr (!T::PRODUCER) {
+      for (int it = 0; it < kWStages && it < ntiles; ++it) {
+        load_kv<D>(ks + it * T::KTILE, &kmap, &k_full[it], kvh, k_begin + it * KEYS, b);
+        load_kv<D>(vs + it * T::KTILE, &vmap, &v_full[it], kvh, k_begin + it * KEYS, b);
       }
     }
-  } else {  // consumers: query rows q0 + 64 (wg - 1) .. + 63
-    hopper::setmaxnreg_inc<240>();
-    const int c = wg - 1;
-    const bool leader = threadIdx.x % 128 == 0;
-    const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-    const int qw0 = q0 + 64 * c;
-    const int row_a = qw0 + 16 * w + lane / 4, row_b = row_a + 8;
-    // this warpgroup's 64 rows of Q; K (K-major) and V (MN-major) of stage 0
-    const uint64_t qd = hopper::smem_desc(qs + c * 64 * 128, 16, 1024);
-    const uint64_t kd0 = hopper::smem_desc(ks, 16, 1024);
-    const uint64_t vd0 = hopper::smem_desc(vs, kWBox, 1024);
-    constexpr uint64_t kStageStep = TILE >> 4;
-
-    float o[DP / 2];
-#pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
-    float sc[64];
-    uint32_t p[32];
-    RowState r{kNegInf, kNegInf, 0.0f, 0.0f, 0.0f, 0.0f};
-    if (c == 1) hopper::named_arrive<1, 256>();  // the first turn is warpgroup 0's
-    hopper::mbar_wait(q_full, 0);
-
-    for (int it = 0; it < ntiles; ++it) {
-      const int cur = it % kWStages;
-      const uint32_t parity = (it / kWStages) & 1;
-      hopper::mbar_wait(&k_full[cur], parity);
-      take_turn(c);
-      hopper::wgmma_fence();
-      issue_qk<DP>(sc, qd, kd0 + cur * kStageStep);
-      if (c == 0 || it + 1 < ntiles) give_turn(c);  // warpgroup 1 gives one turn fewer
-      hopper::wgmma_wait<0>();
-      hopper::pin(sc);
-      if (leader) hopper::mbar_arrive(&k_empty[cur]);
-      const int kt = k_begin + it * kWKeys;
-      softmax_tile(sc, r, scale_log2, edge_tile(kt, qw0, S, causal, window), kt, row_a, S,
-                   causal, window, lane);
-      to_frags(sc, p);
-      rescale(o, r.al_a, r.al_b);
-      hopper::mbar_wait(&v_full[cur], parity);
-      hopper::pin(o);
-      hopper::pin(p);
-      hopper::wgmma_fence();
-      issue_pv<DP>(o, p, vd0 + cur * kStageStep);
-      hopper::wgmma_wait<0>();
-      hopper::pin(o);
-      hopper::pin(p);
-      if (leader) hopper::mbar_arrive(&v_empty[cur]);
+  }
+  if constexpr (T::PRODUCER) {
+    if (wg == 0) {  // the producer warpgroup: thread 0 streams K and V
+      if (threadIdx.x == 0) {
+        for (int it = 0; it < ntiles; ++it) {
+          const int s = it % kWStages;
+          const uint32_t parity = ((it / kWStages) - 1) & 1;
+          const int kt = k_begin + it * KEYS;
+          if (it >= kWStages) hopper::mbar_wait(&k_empty[s], parity);
+          load_kv<D>(ks + s * T::KTILE, &kmap, &k_full[s], kvh, kt, b);
+          if (it >= kWStages) hopper::mbar_wait(&v_empty[s], parity);
+          load_kv<D>(vs + s * T::KTILE, &vmap, &v_full[s], kvh, kt, b);
+        }
+      }
+      return;
     }
+  }
+  // consumers: query rows q0 + 64 c .. + 63
+  const int c = T::PRODUCER ? wg - 1 : wg;
+  const bool leader = threadIdx.x % 128 == 0;
+  const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int qw0 = q0 + 64 * c;
+  const int row_a = qw0 + 16 * w + lane / 4, row_b = row_a + 8;
+  // this warpgroup's 64 rows of Q; K (K-major) and V (MN-major: LBO the
+  // step between 64-column boxes) of stage 0
+  const uint64_t qd = hopper::smem_desc(qs + c * 64 * kWRowBytes, 16, 1024);
+  const uint64_t kd0 = hopper::smem_desc(ks, 16, 1024);
+  const uint64_t vd0 = hopper::smem_desc(vs, T::KBOX, 1024);
+  constexpr uint64_t kStageStep = T::KTILE >> 4;
+
+  float o[T::DP / 2];
+#pragma unroll
+  for (int i = 0; i < T::DP / 2; ++i) o[i] = 0.0f;
+  float sc[KEYS / 2];
+  uint32_t p[KEYS / 4];
+  RowState r{kNegInf, kNegInf, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (c == 1) hopper::named_arrive<1, 256>();  // the first turn is warpgroup 0's
+  hopper::mbar_wait(q_full, 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int cur = it % kWStages;
+    const uint32_t parity = (it / kWStages) & 1;
+    const int kt = k_begin + it * KEYS;
+    const bool refill = it + kWStages < ntiles;
+    hopper::mbar_wait(&k_full[cur], parity);
+    take_turn(c);
+    hopper::wgmma_fence();
+    issue_qk<D>(sc, qd, kd0 + cur * kStageStep);
+    if (c == 0 || it + 1 < ntiles) give_turn(c);  // warpgroup 1 gives one turn fewer
+    hopper::wgmma_wait<0>();
+    hopper::pin(sc);
+    if (leader) {
+      if constexpr (T::PRODUCER)
+        hopper::mbar_arrive(&k_empty[cur]);
+      else if (second_release(&k_released[cur]) && refill)
+        load_kv<D>(ks + cur * T::KTILE, &kmap, &k_full[cur], kvh, kt + kWStages * KEYS, b);
+    }
+    softmax_tile<KEYS>(sc, r, scale_log2, edge_tile<KEYS>(kt, qw0, S, causal, window), kt,
+                       row_a, S, causal, window, lane);
+    to_frags<KEYS>(sc, p);
+    rescale(o, r.al_a, r.al_b);
+    hopper::mbar_wait(&v_full[cur], parity);
+    hopper::pin(o);
+    hopper::pin(p);
+    hopper::wgmma_fence();
+    issue_pv<D>(o, p, vd0 + cur * kStageStep);
+    hopper::wgmma_wait<0>();
+    hopper::pin(o);
+    hopper::pin(p);
+    if (leader) {
+      if constexpr (T::PRODUCER)
+        hopper::mbar_arrive(&v_empty[cur]);
+      else if (second_release(&v_released[cur]) && refill)
+        load_kv<D>(vs + cur * T::KTILE, &vmap, &v_full[cur], kvh, kt + kWStages * KEYS, b);
+    }
+  }
 
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      r.l_a += __shfl_xor_sync(0xffffffffu, r.l_a, off);
-      r.l_b += __shfl_xor_sync(0xffffffffu, r.l_b, off);
-    }
-    const float inv_a = 1.0f / fmaxf(r.l_a, 1e-30f), inv_b = 1.0f / fmaxf(r.l_b, 1e-30f);
-    const int64_t q_stride = static_cast<int64_t>(H) * D;
-    __nv_bfloat16* ob = out + (static_cast<int64_t>(b) * S * H + h) * D + 2 * (lane % 4);
+  for (int off = 1; off < 4; off <<= 1) {
+    r.l_a += __shfl_xor_sync(0xffffffffu, r.l_a, off);
+    r.l_b += __shfl_xor_sync(0xffffffffu, r.l_b, off);
+  }
+  const float inv_a = 1.0f / fmaxf(r.l_a, 1e-30f), inv_b = 1.0f / fmaxf(r.l_b, 1e-30f);
+  const int64_t q_stride = static_cast<int64_t>(H) * D;
+  __nv_bfloat16* ob = out + (static_cast<int64_t>(b) * S * H + h) * D + 2 * (lane % 4);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      if (row_a < S)
-        *reinterpret_cast<uint32_t*>(ob + row_a * q_stride + 8 * j) =
-            pack_bf16(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
-      if (row_b < S)
-        *reinterpret_cast<uint32_t*>(ob + row_b * q_stride + 8 * j) =
-            pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
-    }
+  for (int j = 0; j < D / 8; ++j) {
+    if (row_a < S)
+      *reinterpret_cast<uint32_t*>(ob + row_a * q_stride + 8 * j) =
+          pack_bf16(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
+    if (row_b < S)
+      *reinterpret_cast<uint32_t*>(ob + row_b * q_stride + 8 * j) =
+          pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
   }
 }
 
@@ -593,16 +698,18 @@ template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int S,
                          int H, int KV, int causal, int window, float scale,
                          cudaStream_t s) {
+  using T = WTile<D>;
   static bool configured = false;  // shared memory above 48 KB is opt-in
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(wgmma_smem_bytes<(D + 63) / 64 * 64>()));
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(T::SMEM));
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  // (D, heads, S, B) maps; boxes of 64 columns x 1 head x 128 rows
-  const cuuint32_t box[4] = {64, 1, 128, 1};
+  // (D, heads, S, B) maps; boxes of 64 columns x 1 head x 128 rows (Q) or
+  // KEYS rows (K, V)
+  const cuuint32_t boxes[2][4] = {{64, 1, kWRows, 1}, {64, 1, T::KEYS, 1}};
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
@@ -610,11 +717,12 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
     const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), heads, static_cast<cuuint64_t>(S),
                                 static_cast<cuuint64_t>(B)};
     const cuuint64_t strides[3] = {D * 2, heads * D * 2, static_cast<cuuint64_t>(S) * heads * D * 2};
-    const cudaError_t e = hopper::bf16_map(&maps[i], bases[i], 4, dims, strides, box);
+    const cudaError_t e =
+        hopper::bf16_map(&maps[i], bases[i], 4, dims, strides, boxes[i == 0 ? 0 : 1]);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((S + kWRows - 1) / kWRows, H, B);
-  flash_wgmma_kernel<D><<<grid, kWThreads, wgmma_smem_bytes<(D + 63) / 64 * 64>(), s>>>(
+  flash_wgmma_kernel<D><<<grid, T::THREADS, T::SMEM, s>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), S, H, KV, causal, window,
       scale * kLog2e);
   return cudaGetLastError();
@@ -728,7 +836,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, i
 // (dtype 0: float32, 1: bfloat16), row-major, contiguous, 16-byte aligned,
 // on the device of `stream`; H % KV == 0; causal 0/1; window <= 0 for none.
 // variant 0 simt (f32, D a multiple of 8 up to 256), 1 mma (bf16, D in
-// {16, 32, 256}), 2 wgmma (bf16, D in {64, 112, 128}). Returns
+// {16, 32, 256}), 2 wgmma (bf16, D in {64, 112, 128, 256}). Returns
 // cudaErrorInvalidValue for a variant that cannot serve the call, else
 // cudaGetLastError().
 extern "C" int attn_flash_fwd(const void* q, const void* k, const void* v, void* out,
@@ -746,6 +854,7 @@ extern "C" int attn_flash_fwd(const void* q, const void* k, const void* v, void*
       case 64: return static_cast<int>(launch_wgmma<64>(q, k, v, out, B, S, H, KV, causal, window, scale, s));
       case 112: return static_cast<int>(launch_wgmma<112>(q, k, v, out, B, S, H, KV, causal, window, scale, s));
       case 128: return static_cast<int>(launch_wgmma<128>(q, k, v, out, B, S, H, KV, causal, window, scale, s));
+      case 256: return static_cast<int>(launch_wgmma<256>(q, k, v, out, B, S, H, KV, causal, window, scale, s));
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

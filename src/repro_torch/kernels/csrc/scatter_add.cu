@@ -42,9 +42,9 @@
 // Numerics: both variants sum with float atomics (in shared memory for
 // tile) in an order that changes from run to run, so results are not
 // bitwise reproducible; they agree with the plain version within 1e-5
-// relative plus absolute. The atomic variant's warp and block sums keep a
-// crowded position's rounding walk short (one atomic per 256 entries, not
-// per entry).
+// relative plus absolute. The atomic variant sums a crowded position's
+// entries in float64 and rounds them to float once (its crowded slots,
+// below), so there its result does not depend on the order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -116,28 +116,72 @@ __device__ __forceinline__ void zero_tile(float* tile, int64_t len) {
 // fixed shuffle tree in float64; every other warp issues one float atomic
 // per entry, as the first design did. Then, where some warp of the block
 // was on one position, those warps' sums meet in shared memory: on one
-// position they are added in a fixed tree and one lane issues one atomic,
-// else each issues its own. A stream that crowds one position (30,000
-// entries on one float) so sends one atomic per 256 entries, each a
-// float64 sum rounded once, instead of one per entry: its gap to the exact
-// sum falls from up to 1e-3 to about 5e-5, and it runs about 12 times
-// faster (the queue of atomics on the hot address). Random top-k streams
-// pay two warp reductions and one barrier per 256 entries. More entries a
-// thread (fewer blocks, a larger block sum) bought no accuracy here and
-// cost small streams their spread over the SMs.
+// position they are added in a fixed tree, else each stays apart. Each
+// such float64 sum (one per 256 entries of a stream that crowds one
+// position) goes to a crowded slot: a float64 accumulator of the
+// caller's zeroed scratch, claimed for its position by a compare-and-swap
+// and added to with float64 atomics. The last block to finish (a ticket
+// counter) rounds each claimed slot to float once and adds it to out. So a
+// crowded position takes one float rounding of a float64 sum, whatever
+// order the blocks ran in: its gap to the exact sum is about half a float
+// step, and the same every run unless the float64 sum's last bits (its
+// order) fall on a float's halfway point. Rounding each block's sum to float and adding it
+// with float atomics in the blocks' order, as the first combining design
+// did, walked by up to 9.2e-5 on 30,000 entries, differently each run (its
+// steps are a float step of the running sum). A launch crowding more than
+// kSlots positions sends the rest as float atomics of their float64 sums.
+// Random top-k streams (no warp on one position) pay two warp reductions
+// and one barrier per 256 entries, and one ticket a block (taken by warp 0
+// as the other warps exit; only a lane that added to a slot fences first).
 constexpr int kAtomicWarps = kAtomicThreads / 32;
+constexpr int kSlots = 32;  // one a lane of warp 0, which flushes them
+
+constexpr int kTicketGroups = 32;
+
+// The atomic variant's scratch, zeroed by the caller: slot s holds
+// position key[s] - 1 (0: free) and its float64 sum. Blocks take their
+// ticket in one of kTicketGroups counters (blockIdx % kTicketGroups, each
+// on a 128-byte line of its own, so that the blocks' tickets do not queue
+// on one address: at fc2's 2,112 blocks one counter cost about twice as
+// much); the block that completes a group takes a ticket in groups_done,
+// and the one that completes the last group flushes.
+struct Crowd {
+  unsigned long long key[kSlots];
+  double sum[kSlots];
+  unsigned int group[kTicketGroups][32];
+  unsigned int groups_done;
+};
+
+// Adds a float64 sum of entries on `pos` to its crowded slot (open
+// addressing from pos % kSlots), or, when every slot holds another
+// position, to out as one float atomic.
+__device__ __forceinline__ void add_crowded(Crowd* crowd, float* out, int64_t pos, double x) {
+  const unsigned long long key = static_cast<unsigned long long>(pos) + 1ull;
+  const int h = static_cast<int>(pos % kSlots);
+  for (int i = 0; i < kSlots; ++i) {
+    const int slot = (h + i) % kSlots;
+    unsigned long long was = __ldcg(&crowd->key[slot]);  // claimed already?
+    if (was == 0ull) was = atomicCAS(&crowd->key[slot], 0ull, key);
+    if (was == 0ull || was == key) {
+      atomicAdd(&crowd->sum[slot], x);
+      return;
+    }
+  }
+  atomicAdd(out + pos, static_cast<float>(x));
+}
 
 template <typename Idx>
 __global__ void __launch_bounds__(kAtomicThreads)
 atomic_kernel(const float* __restrict__ vals, const Idx* __restrict__ idx,
-              const float* __restrict__ w, float* __restrict__ out, int64_t total, int64_t k,
-              int64_t size) {
+              const float* __restrict__ w, float* __restrict__ out, Crowd* __restrict__ crowd,
+              int64_t total, int64_t k, int64_t size) {
   constexpr unsigned kAll = 0xffffffffu;
   __shared__ int64_t slot_p[kAtomicWarps];  // a warp's one position, or -1
   __shared__ double slot_v[kAtomicWarps];   // and its sum
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bool key32 = size < 0xffffffffLL;   // positions fit the 32-bit reductions
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kAtomicThreads;
+  bool crowded = false;  // this thread added to a crowded slot
   // the loop runs alike for every thread of a block (barriers inside)
   for (int64_t b0 = static_cast<int64_t>(blockIdx.x) * kAtomicThreads; b0 < total;
        b0 += stride) {
@@ -168,13 +212,36 @@ atomic_kernel(const float* __restrict__ vals, const Idx* __restrict__ idx,
       if (qlo == qhi) {  // every warp that was on one position, on the same one
 #pragma unroll
         for (int off = kAtomicWarps / 2; off > 0; off >>= 1) x += __shfl_down_sync(kAll, x, off);
-        if (lane == 0) atomicAdd(out + qlo, static_cast<float>(x));
+        if (lane == 0) {
+          add_crowded(crowd, out, qlo, x);
+          crowded = true;
+        }
       } else if (q >= 0) {
-        atomicAdd(out + q, static_cast<float>(x));
+        add_crowded(crowd, out, q, x);
+        crowded = true;
       }
     }
     __syncthreads();  // the slots are written again next iteration
   }
+  // Warp 0 alone touches the crowded slots; the other warps are done. The
+  // last block to take a ticket rounds each claimed slot once into out.
+  if (warp != 0) return;
+  if (crowded) __threadfence();  // this lane's slot adds before the ticket
+  __syncwarp();
+  unsigned last = 0;
+  if (lane == 0) {
+    const unsigned n = gridDim.x, g = blockIdx.x % kTicketGroups;
+    const unsigned members = (n - 1 - g) / kTicketGroups + 1;
+    const unsigned groups = n < kTicketGroups ? n : kTicketGroups;
+    if (atomicAdd(&crowd->group[g][0], 1u) == members - 1) {
+      __threadfence();
+      last = atomicAdd(&crowd->groups_done, 1u) == groups - 1;
+    }
+  }
+  if (!__shfl_sync(kAll, last, 0)) return;
+  __threadfence();
+  const unsigned long long key = __ldcg(&crowd->key[lane]);
+  if (key != 0ull) atomicAdd(out + (key - 1ull), static_cast<float>(__ldcg(&crowd->sum[lane])));
 }
 
 // ---- tile: one block, the whole output in shared memory -------------------
@@ -216,12 +283,12 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
 
 template <typename Idx>
 cudaError_t launch(int variant, const float* v, const Idx* ix, const float* w, float* o,
-                   int64_t total, int64_t k, int64_t size, cudaStream_t s) {
+                   Crowd* crowd, int64_t total, int64_t k, int64_t size, cudaStream_t s) {
   if (variant == kAtomic) {
     int64_t blocks = (total + kAtomicThreads - 1) / kAtomicThreads;
     if (blocks > kMaxAtomicBlocks) blocks = kMaxAtomicBlocks;
-    atomic_kernel<Idx><<<static_cast<unsigned>(blocks), kAtomicThreads, 0, s>>>(v, ix, w, o,
-                                                                                total, k, size);
+    atomic_kernel<Idx><<<static_cast<unsigned>(blocks), kAtomicThreads, 0, s>>>(
+        v, ix, w, o, crowd, total, k, size);
     return cudaGetLastError();
   }
   if (size > kTile) return cudaErrorInvalidValue;
@@ -238,25 +305,35 @@ cudaError_t launch(int variant, const float* v, const Idx* ix, const float* w, f
 // vals (n, k) f32, idx (n, k) int32 (idx_bytes = 4) or int64 (8), w (n,)
 // f32, all row-major and contiguous; out (size,) f32, 16-byte aligned;
 // all on the device of `stream`. variant 0 (atomic) adds into an out the
-// caller zeroed; 1 (tile) writes every element of out. A variant that
-// cannot serve the shape is refused with cudaErrorInvalidValue. Returns
-// cudaGetLastError() after the launch.
+// caller zeroed, with a zeroed scratch of scratch_bytes >= fl_scatter_crowd_bytes()
+// (8-byte aligned); 1 (tile) writes every element of out and takes no
+// scratch. A variant that cannot serve the shape is refused with
+// cudaErrorInvalidValue. Returns cudaGetLastError() after the launch.
+extern "C" long long fl_scatter_crowd_bytes() { return static_cast<long long>(sizeof(Crowd)); }
+
 extern "C" int fl_scatter_add(const void* vals, const void* idx, int idx_bytes, const void* w,
-                              void* out, int variant, long long n, long long k, long long size,
-                              void* stream) {
+                              void* out, void* scratch, long long scratch_bytes, int variant,
+                              long long n, long long k, long long size, void* stream) {
   const int64_t total = static_cast<int64_t>(n) * k;
   if (idx_bytes != 4 && idx_bytes != 8) return static_cast<int>(cudaErrorInvalidValue);
   if ((variant != kAtomic && variant != kTileVariant) || size < 1 ||
       reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == kAtomic &&
+      (scratch == nullptr || scratch_bytes < static_cast<long long>(sizeof(Crowd)) ||
+       reinterpret_cast<uintptr_t>(scratch) % 8))
     return static_cast<int>(cudaErrorInvalidValue);
   if (total <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* v = static_cast<const float*>(vals);
   const float* wt = static_cast<const float*>(w);
   float* o = static_cast<float*>(out);
+  Crowd* crowd = static_cast<Crowd*>(scratch);
   const cudaError_t e =
       idx_bytes == 8
-          ? launch<int64_t>(variant, v, static_cast<const int64_t*>(idx), wt, o, total, k, size, s)
-          : launch<int32_t>(variant, v, static_cast<const int32_t*>(idx), wt, o, total, k, size, s);
+          ? launch<int64_t>(variant, v, static_cast<const int64_t*>(idx), wt, o, crowd, total, k,
+                            size, s)
+          : launch<int32_t>(variant, v, static_cast<const int32_t*>(idx), wt, o, crowd, total, k,
+                            size, s);
   return static_cast<int>(e);
 }

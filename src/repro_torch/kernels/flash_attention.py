@@ -12,7 +12,10 @@ by the variant ``kernel_variant`` names, in ``launches_by_variant``) and
 runs ``attention_ref`` for CPU tensors; its backward is the autograd of
 ``attention_ref``, as the reference's ``custom_vjp`` is the VJP of its
 oracle. There is no fallback: a CUDA tensor launches the named variant or
-raises.
+raises. In bfloat16 ``wgmma`` (TMA and wgmma) serves D in 64, 112, 128 and
+256 (every model's prefill) and ``mma`` (mma.sync) D in 16 and 32; float32
+takes ``simt``. ``launch_variant`` runs a named variant through the C entry
+without counting, e.g. ``mma`` at D = 256 beside ``wgmma``.
 ``attention_ref`` is the reference's q-chunked oracle (``ref.attention``)
 and ``attention_dense_ref`` its dense one (``ref.attention_dense``).
 """
@@ -34,9 +37,12 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 #: The kernel's variants, by the number the C entry takes.
 VARIANTS = ("simt", "mma", "wgmma")
-#: Head dims the wgmma variant serves (D = 112 as D = 128, zero-padded);
-#: the mma variant serves the others.
-WGMMA_HEAD_DIMS = (64, 112, 128)
+#: Head dims the wgmma variant serves (D = 112 as D = 128, zero-padded;
+#: D = 256 with tiles of 64 keys).
+WGMMA_HEAD_DIMS = (64, 112, 128, 256)
+#: Head dims the mma variant serves; ``kernel_variant`` names it at 16 and
+#: 32, and at 256 it runs only through ``launch_variant``.
+MMA_HEAD_DIMS = (16, 32, 256)
 #: The same launches split by variant.
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
@@ -45,12 +51,25 @@ def kernel_variant(dtype: torch.dtype, B: int, S: int, H: int, KV: int,
                    D: int, window: Optional[int]) -> str:
     """The variant of ``csrc/flash_attention.cu`` that serves this call:
     ``"simt"`` for float32; for bfloat16 ``"wgmma"`` (TMA and wgmma) at D in
-    ``WGMMA_HEAD_DIMS`` and ``"mma"`` (mma.sync) at the other head dims.
+    ``WGMMA_HEAD_DIMS`` (64, 112, 128 and 256) and ``"mma"`` (mma.sync) at
+    the other head dims (16 and 32).
     TMA describes every B, S, H, KV and window at those head dims, so the
     rest of the shape does not enter the rule."""
     if dtype != torch.bfloat16:
         return "simt"
     return "wgmma" if D in WGMMA_HEAD_DIMS else "mma"
+
+
+def serves(variant: str, dtype: torch.dtype, D: int) -> bool:
+    """Whether the C entry takes ``variant`` for ``dtype`` at head dim
+    ``D``: ``simt`` float32 at every head dim, ``mma`` bfloat16 at
+    ``MMA_HEAD_DIMS``, ``wgmma`` bfloat16 at ``WGMMA_HEAD_DIMS``."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+    if variant == "simt":
+        return dtype == torch.float32 and D in HEAD_DIMS
+    dims = MMA_HEAD_DIMS if variant == "mma" else WGMMA_HEAD_DIMS
+    return dtype == torch.bfloat16 and D in dims
 
 
 def attention_dense_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -160,18 +179,36 @@ def _forward_cuda(q, k, v, causal: bool, window: Optional[int]):
     if q.numel() == 0:
         return out
     variant = kernel_variant(q.dtype, B, S, H, KV, D, window)
-    fn = _entry()
+    launch_variant(variant, q, k, v, out, causal, window)
+    launches += 1
+    launches_by_variant[variant] += 1
+    return out
+
+
+def launch_variant(variant: str, q, k, v, out, causal: bool,
+                   window: Optional[int]) -> None:
+    """One launch of ``variant`` through the C entry into ``out`` on
+    checked, contiguous, 16-byte aligned CUDA inputs of one dtype; counts
+    nothing (``flash_attention`` does). Refuses an unknown variant, a
+    tensor off the card and a variant that does not serve the dtype and
+    head dim (``serves``)."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    if not serves(variant, q.dtype, D):
+        raise ValueError(f"the {variant} variant does not serve {q.dtype} "
+                         f"at D = {D}")
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if x.device.type != "cuda":
+            raise ValueError(f"launch_variant takes CUDA tensors; {name} is "
+                             f"on {x.device}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPES[q.dtype], VARIANTS.index(variant), B, S, H, KV, D,
-            int(causal), 0 if window is None else int(window), stream)
+    rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  DTYPES[q.dtype], VARIANTS.index(variant), B, S, H, KV, D,
+                  int(causal), 0 if window is None else int(window), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel ({variant}) launch "
                            f"failed: CUDA error {rc} at (B, S, H, KV, D) = "
                            f"({B}, {S}, {H}, {KV}, {D})")
-    launches += 1
-    launches_by_variant[variant] += 1
-    return out
 
 
 class _Flash(torch.autograd.Function):

@@ -17,8 +17,10 @@ raises. Both variants sum with float atomics (in shared memory for
 ``tile``), in an order that changes from run to run, so on the card the
 result is not bitwise reproducible; it agrees with the plain version
 within 1e-5 relative plus absolute. ``atomic`` sums a warp's, then a
-block's, entries first where they all hold one position, so a stream that
-crowds one float sends it one atomic per 256 entries.
+block's, entries first where they all hold one position, in float64, and
+adds those sums with float64 atomics into a slot of a small zeroed scratch
+that its last block rounds once into the output: a position that a stream
+crowds takes one rounding, whatever the blocks' order.
 """
 
 from __future__ import annotations
@@ -98,12 +100,16 @@ def _entry():
     """The kernel's C entry point, built and typed at first use."""
     from repro_torch.kernels import build
 
-    fn = build.load("scatter_add").fl_scatter_add
+    lib = build.load("scatter_add")
+    fn = lib.fl_scatter_add
     if fn.argtypes is None:  # ints would pass as 32-bit, cutting pointers
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_int] + [
             ctypes.c_longlong] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.fl_scatter_crowd_bytes.restype = ctypes.c_longlong
+        fn.crowd_bytes = int(lib.fl_scatter_crowd_bytes())
     return fn
 
 
@@ -139,15 +145,26 @@ def launch_variant(variant: str, vals: torch.Tensor, idx: torch.Tensor,
                    weights: torch.Tensor, size: int) -> torch.Tensor:
     """One launch of ``variant`` through the C entry on checked,
     contiguous CUDA inputs with n * k > 0; returns the (size,) output.
-    ``atomic`` adds into a ``torch.zeros`` output; ``tile`` writes every
-    element of a ``torch.empty`` one. Counts nothing (``scatter_add``
-    does)."""
+    ``atomic`` adds into a zeroed output, its crowded slots in a zeroed
+    scratch after it (one ``torch.zeros``; the output is a view of its
+    first ``size`` floats); ``tile`` writes every element of a
+    ``torch.empty`` one. Counts nothing (``scatter_add`` does)."""
     n, k = vals.shape
-    out = (torch.zeros if variant == "atomic" else torch.empty)(
-        size, dtype=torch.float32, device=vals.device)
-    rc = _entry()(vals.data_ptr(), idx.data_ptr(), idx.element_size(),
-                  weights.data_ptr(), out.data_ptr(), VARIANTS.index(variant),
-                  n, k, size, torch.cuda.current_stream(vals.device).cuda_stream)
+    fn = _entry()
+    scratch, nbytes = None, 0
+    if variant == "atomic":
+        start = -(-size // 4) * 4          # the scratch 16-byte aligned
+        buf = torch.zeros(start + -(-fn.crowd_bytes // 4), dtype=torch.float32,
+                          device=vals.device)
+        out, scratch = buf[:size], buf[start:]
+        nbytes = scratch.numel() * 4
+    else:
+        out = torch.empty(size, dtype=torch.float32, device=vals.device)
+    rc = fn(vals.data_ptr(), idx.data_ptr(), idx.element_size(),
+            weights.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, nbytes,
+            VARIANTS.index(variant), n, k, size,
+            torch.cuda.current_stream(vals.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"scatter_add kernel ({variant}) launch failed: "
                            f"CUDA error {rc} at (n, k, size) = ({n}, {k}, "

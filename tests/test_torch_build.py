@@ -84,10 +84,15 @@ def test_every_kernel_source_is_listed():
     # ragged S, G = 16, MQA: still TMA-describable
     (torch.bfloat16, 1, 333, 32, 2, 128, None, "wgmma"),
     (torch.bfloat16, 1, 1, 8, 1, 64, None, "wgmma"),
-    # other head dims keep mma.sync
+    # D = 16 and 32 keep mma.sync
     (torch.bfloat16, 2, 128, 4, 2, 16, None, "mma"),
     (torch.bfloat16, 2, 128, 4, 2, 32, 16, "mma"),
-    (torch.bfloat16, 1, 1000, 8, 4, 256, None, "mma"),
+    # D = 256 on wgmma (tiles of 64 keys): paligemma-3b's prefill (8/1
+    # heads), a ragged S, a window, one row
+    (torch.bfloat16, 1, 1000, 8, 4, 256, None, "wgmma"),
+    (torch.bfloat16, 2, 4096, 8, 1, 256, None, "wgmma"),
+    (torch.bfloat16, 2, 333, 8, 2, 256, 100, "wgmma"),
+    (torch.bfloat16, 1, 1, 8, 1, 256, None, "wgmma"),
     # float32 keeps the SIMT kernel at every head dim
     (torch.float32, 2, 4096, 16, 8, 128, None, "simt"),
     (torch.float32, 1, 300, 25, 5, 64, 100, "simt"),
@@ -101,6 +106,42 @@ def test_every_kernel_source_is_listed():
 def test_flash_kernel_variant(dtype, B, S, H, KV, D, window, want):
     assert fa.kernel_variant(dtype, B, S, H, KV, D, window) == want
     assert want in fa.VARIANTS
+
+
+@pytest.mark.parametrize("variant,dtype,D,want", [
+    ("wgmma", torch.bfloat16, 256, True), ("mma", torch.bfloat16, 256, True),
+    ("wgmma", torch.bfloat16, 112, True), ("mma", torch.bfloat16, 128, False),
+    ("wgmma", torch.bfloat16, 32, False), ("mma", torch.bfloat16, 16, True),
+    ("simt", torch.float32, 256, True), ("simt", torch.bfloat16, 64, False),
+    ("wgmma", torch.float32, 128, False), ("simt", torch.float32, 48, False)])
+def test_flash_serves(variant, dtype, D, want):
+    """What the C entry takes: the variant ``kernel_variant`` names always,
+    and mma beside wgmma at D = 256 (``launch_variant``'s comparison)."""
+    assert fa.serves(variant, dtype, D) is want
+
+
+def test_flash_kernel_variant_is_served_at_every_head_dim():
+    for dtype in fa.DTYPES:
+        for D in fa.HEAD_DIMS:
+            variant = fa.kernel_variant(dtype, 1, 64, 2, 1, D, None)
+            assert fa.serves(variant, dtype, D)
+
+
+@pytest.mark.parametrize("variant,device,match", [
+    ("nonesuch", "cpu", "unknown variant"),
+    ("mma", "cpu", "CUDA tensors"), ("wgmma", "cpu", "CUDA tensors"),
+    ("wgmma", "meta", "CUDA tensors"), ("mma", "cpu-half", "does not serve")])
+def test_flash_launch_variant_refuses(variant, device, match):
+    """``launch_variant`` refuses an unknown variant, tensors off the card
+    and a variant that does not serve the dtype, before it builds
+    anything."""
+    dtype = torch.float16 if device == "cpu-half" else torch.bfloat16
+    dev = "cpu" if device == "cpu-half" else device
+    q = torch.zeros((1, 8, 2, 256), dtype=dtype, device=dev)
+    kv = torch.zeros((1, 8, 1, 256), dtype=dtype, device=dev)
+    with pytest.raises(ValueError, match=match):
+        fa.launch_variant(variant, q, kv, kv, torch.empty_like(q), True,
+                          None)
 
 
 def _attn(arch):

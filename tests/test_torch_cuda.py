@@ -372,8 +372,15 @@ def test_scatter_add_entry_refuses_what_a_variant_cannot_serve(cuda):
                 else len(sa.VARIANTS))
         assert not (variant in sa.VARIANTS and sa.serves(variant, 1, 4, size))
         rc = fn(vals.data_ptr(), idx.data_ptr(), 8, w.data_ptr(),
-                out.data_ptr(), code, 1, 4, size, stream)
+                out.data_ptr(), None, 0, code, 1, 4, size, stream)
         assert rc == CUDA_ERROR_INVALID_VALUE, variant
+    # atomic without its crowded slots' scratch, or with too little
+    scratch = torch.zeros(fn.crowd_bytes // 4, device=cuda)
+    for ptr, nbytes in ((None, 0), (scratch.data_ptr(), fn.crowd_bytes - 8)):
+        rc = fn(vals.data_ptr(), idx.data_ptr(), 8, w.data_ptr(),
+                out.data_ptr(), ptr, nbytes, sa.VARIANTS.index("atomic"), 1,
+                4, 8, stream)
+        assert rc == CUDA_ERROR_INVALID_VALUE, nbytes
 
 
 # ---- flash and decode attention (kernels/csrc/{flash,decode}_attention.cu) ----
@@ -404,7 +411,13 @@ def randn(g, shape, dtype):
     (2, 130, 4, 4, 128, False, None), (1, 1, 4, 2, 128, True, None),
     # kimi-k2's 64/8 heads of 112 (wgmma at D = 128, zero-padded)
     (1, 300, 64, 8, 112, True, None), (2, 130, 8, 2, 112, False, None),
-    (1, 500, 16, 8, 112, True, 128)])
+    (1, 500, 16, 8, 112, True, 128),
+    # D = 256 on wgmma (64-key tiles): G = 8 (paligemma-3b's), 2 and 1,
+    # S of one row, one short of and one past a tile, ragged; a window,
+    # non-causal, both
+    (2, 1, 8, 1, 256, True, None), (2, 63, 8, 8, 256, True, None),
+    (2, 65, 8, 4, 256, True, None), (2, 333, 8, 1, 256, True, 100),
+    (2, 333, 8, 4, 256, False, None), (2, 65, 8, 8, 256, False, 32)])
 def test_flash_matches_plain(cuda, dtype, B, S, H, KV, D, causal, window):
     g = torch.Generator(device=cuda).manual_seed(S * 7 + H)
     q = randn(g, (B, S, H, D), dtype)
@@ -436,12 +449,34 @@ def test_flash_gradient_through_kernel_forward(cuda):
                                    rtol=5e-4)
 
 
+@pytest.mark.parametrize("S,KV,causal,window", [
+    (1000, 4, True, None), (333, 1, True, 100), (130, 8, False, None)])
+def test_flash_mma_at_head_dim_256_matches_plain(cuda, S, KV, causal,
+                                                  window):
+    """The design before wgmma at D = 256 (mma.sync), which no model path
+    takes any more, launched through ``launch_variant`` (uncounted) and
+    held to the plain version at the bf16 tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(S + KV)
+    q = randn(g, (2, S, 8, 256), torch.bfloat16)
+    k = randn(g, (2, S, KV, 256), torch.bfloat16)
+    v = randn(g, (2, S, KV, 256), torch.bfloat16)
+    before = dict(fa.launches_by_variant)
+    out = torch.empty_like(q)
+    fa.launch_variant("mma", q, k, v, out, causal, window)
+    torch.cuda.synchronize()
+    assert fa.launches_by_variant == before
+    exp = fa.attention_ref(q, k, v, causal=causal, window=window)
+    tol = ATTN_TOL[torch.bfloat16][0]
+    np.testing.assert_allclose(out.float().cpu(), exp.float().cpu(),
+                               atol=tol, rtol=tol)
+
+
 CUDA_ERROR_INVALID_VALUE = 1
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
     (torch.float32, 128, "wgmma"), (torch.bfloat16, 32, "wgmma"),
-    (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "mma"),
+    (torch.bfloat16, 16, "wgmma"), (torch.float32, 64, "mma"),
     (torch.bfloat16, 64, "simt"),
     # D = 64, 112 and 128 are the wgmma variant's alone
     (torch.bfloat16, 64, "mma"), (torch.bfloat16, 128, "mma"),
@@ -956,10 +991,10 @@ def test_flash_under_autograd_at_a_train_shape(cuda):
 
 # The audio and VLM archs' attention at full width: musicgen-medium's MHA
 # of 24 heads of 64 (wgmma, G = 1) and paligemma-3b's MQA of 8 heads of 256
-# over one kv-head (mma, G = 8), at one microbatch of the train phase and
-# at a 16-slot decode against a 4096-row cache.
+# over one kv-head (wgmma with 64-key tiles, G = 8), at one microbatch of
+# the train phase and at a 16-slot decode against a 4096-row cache.
 FRONTEND_ATTN = {"musicgen-medium": (24, 24, 64, "wgmma"),
-                 "paligemma-3b": (8, 1, 256, "mma")}
+                 "paligemma-3b": (8, 1, 256, "wgmma")}
 
 
 @pytest.mark.parametrize("arch", list(FRONTEND_ATTN))
@@ -1095,6 +1130,20 @@ def test_train_step_through_kernels_without_backward_raises(cuda, arch):
     finally:
         ops.set_default_impl("cuda")
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+
+
+def test_scatter_add_more_crowded_positions_than_slots(cuda):
+    """40 positions, each crowded by whole blocks of 256 entries (25,600
+    entries, the atomic variant): the first 32 take crowded slots, the
+    rest float atomics of their float64 sums; all within 1e-5 relative
+    plus absolute of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(41)
+    vals = torch.randn((10, 2560), device=cuda, generator=g)
+    w = torch.rand(10, device=cuda, generator=g) + 0.1
+    block = torch.arange(25_600, device=cuda) // 256
+    idx = ((block % 40) * 7).view(10, 2560).contiguous()
+    assert sa.kernel_variant(10, 2560, 4 * T) == "atomic"
+    check_scatter(vals, idx, w, 4 * T)
 
 
 @pytest.mark.parametrize("seed", range(20))

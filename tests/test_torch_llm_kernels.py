@@ -36,6 +36,10 @@ FLASH_CASES = [
     (3, 64, 4, 4, 16, True, 16),
     (2, 100, 10, 2, 16, True, 24),    # S not a power of two, G = 5
     (1, 96, 4, 2, 32, False, 20),     # window without causal
+    # D = 256 (paligemma-3b's head dim; wgmma with 64-key tiles on the
+    # card): causal MQA, and windowed GQA with S not a multiple of 64
+    (1, 96, 8, 1, 256, True, None),
+    (2, 72, 4, 2, 256, True, 32),
 ]
 DECODE_CASES = [
     # B, H, KV, D, T  (tests/test_kernels_decode.py:10-15)
