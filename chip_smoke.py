@@ -3412,7 +3412,6 @@ def phase_service(torch) -> dict:
         rescore_costs_identical_to_plain=True,
         span_coverage_of_run=served / main["wall_s"],
         report_coverage=summary["coverage"],
-        recompiles=summary["recompiles"],
         phase_p50_ms={n: p["p50_ms"] for n, p in phases.items()},
         phase_count={n: p["count"] for n, p in phases.items()},
         bods_block=block, rescore_block=rescore)

@@ -16,9 +16,16 @@ PyTorch runs eagerly. Cohorts were padded to power-of-two ``buckets`` with
 zero-weight lanes so that jit would not recompile per cohort size; padded
 lanes add exact zeros to FedAvg and fall outside the robust median, so the
 port trains only the real lanes. ``buckets`` is still accepted (a cohort
-larger than the largest bucket still raises) and ``recompiles`` stays 0.
-The reference's lane-free dispatch of one-job groups existed for XLA's
-bitwise tiling; the port loops over a group's jobs.
+larger than the largest bucket still raises). The reference's lane-free
+dispatch of one-job groups existed for XLA's bitwise tiling; the port
+loops over a group's jobs.
+
+Traced (``monitoring.trace``), a flush is one ``fused_round`` device span
+per group (args: the demand that triggered it and every (job, round) it
+trains), and each job's round in it runs under the device spans
+``gather``, ``local_sgd``, ``fedavg`` and, when due, ``eval`` (args:
+``job``, ``round``, ``model``). ``counters()`` counts what the runtime has
+trained; a traced flush also emits the counts as counter events.
 
 ``FLJobRuntime`` — the one-job unfused path (same math: host-side
 partition gather, FedAvg and eval each round), behind ``MultiRuntime``.
@@ -42,19 +49,27 @@ from repro_torch.config.base import JobConfig, ModelConfig
 from repro_torch.fl.aggregation import fedavg, robust_fedavg
 from repro_torch.models.cnn_zoo import (cnn_apply, cnn_init,
                                         cnn_loss_and_accuracy, cross_entropy)
-from repro_torch.monitoring.trace import span
+from repro_torch.monitoring import trace
+from repro_torch.monitoring.trace import device_span, span
 from repro_torch.tree import tree_map
 
 
 # ---- local SGD ----
 
+def _batches(width: int, batch_size: int) -> Tuple[int, int]:
+    """(steps, batch) an epoch of a ``width``-sample shard: a shard of
+    fewer than ``batch_size`` samples is one full-shard batch; the ragged
+    tail is dropped; an empty shard trains nothing."""
+    if width == 0:
+        return 0, 0
+    batch = min(batch_size, width)
+    return max(width // batch, 1), batch
+
+
 def _split_batches(x, y, batch_size: int, axis: int):
     """(…, W, …) shards -> (…, steps, batch, …) along ``axis`` (0 for one
-    device, 1 for a cohort). Devices holding fewer than ``batch_size``
-    samples train on one full-shard batch; the ragged tail is dropped."""
-    W = x.shape[axis]
-    batch_size = min(batch_size, W)
-    steps = max(W // batch_size, 1)
+    device, 1 for a cohort), cut as ``_batches`` says."""
+    steps, batch_size = _batches(x.shape[axis], batch_size)
     lead = x.shape[:axis]
     xb = x.narrow(axis, 0, steps * batch_size).reshape(
         *lead, steps, batch_size, *x.shape[axis + 1:])
@@ -144,20 +159,28 @@ def _inject_corruption(p, locals_, corrupt, corrupt_mode: str,
 def _train_round(params, ids, x, y, partition, sizes, corrupt,
                  cfg: ModelConfig, epochs: int, batch_size: int, lr: float,
                  robust: bool, reject_mult: float, corrupt_mode: str,
-                 corrupt_scale: float):
+                 corrupt_scale: float, tag: Optional[dict] = None):
     """Gather + local SGD + FedAvg (robust: corruption injected, then
-    screened) for one job's cohort ``ids`` (n,) on the device. Returns
-    (new_params, rejected count as a 0-dim tensor)."""
-    idx = partition[ids]                                 # (n, W)
-    locals_ = _local_train_batch(params, cfg, x[idx], y[idx], epochs,
-                                 batch_size, lr)
-    w = sizes[ids]                                       # real sizes
-    if not robust:
-        return fedavg(locals_, w), torch.zeros((), device=w.device)
-    locals_ = _inject_corruption(params, locals_, corrupt, corrupt_mode,
-                                 corrupt_scale)
-    agg, ok = robust_fedavg(params, locals_, w, reject_mult)
-    return agg, (~ok).sum().to(torch.float32)
+    screened) for one job's cohort ``ids`` (n,) on the device, each phase
+    under a device span carrying ``tag``. ``ids`` and ``corrupt`` (n,)
+    may be host arrays. Returns (new_params, rejected count as a 0-dim
+    tensor)."""
+    tag = tag or {}
+    with device_span("gather", **tag):
+        ids = torch.as_tensor(ids, device=x.device)
+        idx = partition[ids]                             # (n, W)
+        xs, ys, w = x[idx], y[idx], sizes[ids]           # w: real sizes
+    with device_span("local_sgd", **tag):
+        locals_ = _local_train_batch(params, cfg, xs, ys, epochs,
+                                     batch_size, lr)
+    with device_span("fedavg", **tag):
+        if not robust:
+            return fedavg(locals_, w), torch.zeros((), device=w.device)
+        corrupt = torch.as_tensor(corrupt, device=x.device)
+        locals_ = _inject_corruption(params, locals_, corrupt, corrupt_mode,
+                                     corrupt_scale)
+        agg, ok = robust_fedavg(params, locals_, w, reject_mult)
+        return agg, (~ok).sum().to(torch.float32)
 
 
 @dataclasses.dataclass
@@ -219,7 +242,8 @@ class FusedMultiRuntime:
         self.reject_mult = float(reject_mult)
         self.fault_engine = fault_engine
         self.rejected_total = 0.0
-        self.recompiles = 0  # eager execution: nothing is ever recompiled
+        self._counts = dict(flushes=0, rounds=0, samples=0, sgd_steps=0)
+        self._model = {jid: job.model.name for jid, job in enumerate(jobs)}
         self._queued: Dict[int, tuple] = {}      # job -> (ids, round_idx)
         self._results: Dict[tuple, tuple] = {}   # (job, round) -> metrics
         self._last: Dict[int, tuple] = {}        # job -> last evaluated
@@ -291,7 +315,7 @@ class FusedMultiRuntime:
                 # No announcement, or the announced cohort drifted: the
                 # demanded cohort wins (nothing has been computed yet).
                 self.begin_round(job_id, ids, round_idx)
-            self._flush()
+            self._flush((int(job_id), int(round_idx)))
         (loss, acc), trained_ids, rej = self._results.pop(key)
         if not np.array_equal(trained_ids, ids):
             raise ValueError(
@@ -309,38 +333,52 @@ class FusedMultiRuntime:
 
     # ---- execution ----
 
-    def _flush(self) -> None:
+    def counters(self) -> Dict[str, int]:
+        """What the runtime has trained, cumulative: ``flushes``,
+        ``rounds``, ``samples`` (each cohort's local-SGD samples as
+        ``_batches`` cuts its shards) and ``sgd_steps`` (the vmapped steps:
+        one a batch and epoch of a round, whatever the cohort's size)."""
+        return dict(self._counts)
+
+    def _flush(self, trigger: tuple) -> None:
+        """Train every queued round, group by group; ``trigger`` is the
+        (job, round) whose demand called for it."""
         queued, self._queued = self._queued, {}
         fspec = getattr(self.fault_engine, "spec", None)
         corrupt_mode = fspec.corrupt_mode if fspec is not None else "nan"
         corrupt_scale = float(fspec.corrupt_scale) if fspec is not None else 1.0
+        counts = self._counts
+        counts["flushes"] += 1
         for grp in self.groups:
             pend = [(jid,) + queued[jid] for jid in grp.job_ids
                     if jid in queued]
             if not pend:
                 continue
-            B = bucket_for(max(len(ids) for _, ids, _ in pend), self.buckets)
+            bucket_for(max(len(ids) for _, ids, _ in pend), self.buckets)
             do_eval = any(r % self.eval_every == 0 or jid not in self._last
                           for jid, _, r in pend)
-            with span("fused_round", jobs=len(pend), bucket=B,
-                      eval=bool(do_eval)):
+            steps, batch = _batches(grp.partition.shape[-1], grp.batch_size)
+            with device_span("fused_round", jobs=len(pend),
+                             eval=bool(do_eval), trigger=trigger,
+                             trains=[(jid, int(r)) for jid, _, r in pend]):
                 for jid, ids, r in pend:
                     ln = grp.lane[jid]
+                    tag = dict(job=jid, round=int(r), model=self._model[jid])
                     corrupt = np.zeros(len(ids), bool)
                     if self.robust and self.fault_engine is not None:
                         # The SAME keyed draw the engine made for this round.
                         corrupt = self.fault_engine.corrupt_mask(jid, r, ids)
                     grp.params[ln], rej = _train_round(
-                        grp.params[ln],
-                        torch.as_tensor(ids, device=self.device),
-                        grp.x[ln], grp.y[ln], grp.partition[ln],
-                        grp.sizes[ln],
-                        torch.as_tensor(corrupt, device=self.device),
+                        grp.params[ln], ids, grp.x[ln], grp.y[ln],
+                        grp.partition[ln], grp.sizes[ln], corrupt,
                         grp.cfg, grp.epochs, grp.batch_size, grp.lr,
                         self.robust, self.reject_mult, corrupt_mode,
-                        corrupt_scale)
+                        corrupt_scale, tag=tag)
+                    counts["rounds"] += 1
+                    counts["samples"] += len(ids) * steps * batch * grp.epochs
+                    counts["sgd_steps"] += steps * grp.epochs
                     if do_eval:
-                        with torch.no_grad():
+                        with device_span("eval", **tag), torch.no_grad():
                             metrics = cnn_loss_and_accuracy(
                                 grp.params[ln], grp.cfg, grp.eval_x[ln],
                                 grp.eval_y[ln])
@@ -349,6 +387,9 @@ class FusedMultiRuntime:
                     # DIFFERENT cohort fails loudly instead of
                     # mis-attributing metrics.
                     self._results[(jid, r)] = (self._last[jid], ids, rej)
+        if trace.enabled():
+            for name, value in counts.items():
+                trace.counter(name, value)
 
     # ---- introspection and hand-over (tests / carrying a run across) ----
 

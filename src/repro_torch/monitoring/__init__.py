@@ -1,9 +1,10 @@
 """Monitoring: the port's observability layer.
 
 - ``trace``   — zero-cost-when-disabled span tracer with Chrome/Perfetto
-  trace-event JSON export (``span("schedule")``, counters, instants);
-  instruments the engine, the fused FL runtime, the fused searchers, and
-  the scheduler service.
+  trace-event JSON export (``span("schedule")``, device-timed
+  ``device_span("local_sgd")``, counters, instants); instruments the
+  engine, the fused FL runtime, the fused searchers, and the scheduler
+  service.
 - ``bus``     — synchronous pub/sub ``EventBus`` carrying engine
   ``round``/``round_begin``/``job_done`` and serve lifecycle events to
   sinks.
@@ -13,8 +14,8 @@
   cost, degraded rounds, scheduler name).
 - ``session`` — ``ObsSpec`` (the spec's ``obs`` axis) + ``ObsSession``
   (declarative wiring: ``--set obs.trace_path=trace.json`` on any run).
-- ``report``  — per-phase wall-clock breakdowns, run diffs, and BENCH_*.json
-  regression checks (``python -m repro_torch.monitoring report``).
+- ``report``  — per-phase wall-clock breakdowns and run diffs
+  (``python -m repro_torch.monitoring report``).
 """
 
 from repro_torch.monitoring.audit import SchedulerAudit

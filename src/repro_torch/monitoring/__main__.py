@@ -3,17 +3,11 @@
   python -m repro_torch.monitoring report trace.json
   python -m repro_torch.monitoring report trace.json --metrics metrics.jsonl
   python -m repro_torch.monitoring report trace.json --diff other_trace.json
-  python -m repro_torch.monitoring report trace.json --check-bench BENCH_obs.json
-  python -m repro_torch.monitoring report trace.json --check-bench .   # all BENCH_*.json
 
 Generate the inputs with the spec's ``obs`` axis on any run::
 
   python -m repro_torch.experiment.cli preset quickstart \\
       --set obs.trace_path=trace.json --set obs.metrics_path=metrics.jsonl
-
-``--check-bench`` exits non-zero on a phase-level regression (current p50
-above the baseline's recorded phase p50 by more than ``--tolerance``) or
-when any named BENCH_*.json carries recorded gate failures.
 """
 
 from __future__ import annotations
@@ -35,12 +29,13 @@ def cmd_report(args) -> int:
     print(rpt.format_table(stats))
     cov = rpt.coverage(stats)
     rps = rpt.rounds_per_sec(stats)
-    line = [f"recompiles={rpt.recompile_count(events)}"]
+    line = []
     if cov is not None:
-        line.insert(0, f"engine span coverage {cov * 100:.1f}%")
+        line.append(f"engine span coverage {cov * 100:.1f}%")
     if rps is not None:
         line.append(f"rounds/sec={rps:.1f}")
-    print("  " + "  ".join(line))
+    if line:
+        print("  " + "  ".join(line))
 
     if args.metrics:
         metrics = rpt.load_metrics(args.metrics)
@@ -60,7 +55,6 @@ def cmd_report(args) -> int:
                         if "p50_ms" in s else "")
                 print(f"  rung {rung:12s} n={s['count']:5d}{tail}")
 
-    rc = 0
     if args.diff:
         other = rpt.phase_stats(rpt.load_trace(args.diff))
         print(f"\n== diff vs {args.diff} (ratio > 1: {args.diff} slower) ==")
@@ -70,23 +64,12 @@ def cmd_report(args) -> int:
             print(f"{name:24s} {d['p50_ms_a']:14.3f} {d['p50_ms_b']:15.3f} "
                   f"{d['p50_ratio']:7.2f}")
 
-    if args.check_bench:
-        failures = rpt.check_bench(stats, args.check_bench,
-                                   tolerance=args.tolerance)
-        if failures:
-            print("\nREGRESSIONS:")
-            for f in failures:
-                print(f"  {f}")
-            rc = 1
-        else:
-            print(f"\nbench check clean ({', '.join(args.check_bench)})")
-
     if args.json:
         out = rpt.summarize(args.trace, metrics_path=args.metrics)
         with open(args.json, "w") as f:
             json.dump(out, f, indent=2)
         print(f"\nreport JSON -> {args.json}")
-    return rc
+    return 0
 
 
 def main(argv=None) -> int:
@@ -96,19 +79,13 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("report", help="per-phase wall-clock breakdown of a "
-                                      "trace (+ optional diff / bench check)")
+                                      "trace (+ optional diff)")
     p.add_argument("trace", help="Chrome/Perfetto trace JSON "
                                  "(obs.trace_path output)")
     p.add_argument("--metrics", help="round-metrics JSONL "
                                      "(obs.metrics_path output)")
     p.add_argument("--diff", metavar="TRACE2",
                    help="second trace: print per-phase p50 ratios")
-    p.add_argument("--check-bench", nargs="+", metavar="PATH",
-                   help="BENCH_*.json files/dirs/globs: fail on phase-level "
-                        "regressions or recorded gate failures")
-    p.add_argument("--tolerance", type=float, default=0.5,
-                   help="allowed fractional p50 slowdown vs a bench "
-                        "baseline's phases (default 0.5 = 50%%)")
     p.add_argument("--json", metavar="OUT",
                    help="also write the full report as JSON")
     p.set_defaults(fn=cmd_report)

@@ -1,36 +1,28 @@
-"""Regression-aware run reports from traces + metrics JSONL.
+"""Run reports from traces + metrics JSONL.
 
 ``python -m repro_torch.monitoring report trace.json`` answers "where did the
 wall-clock go": a per-phase breakdown table (count, total, p50/p99 per span
-kind), span coverage of engine wall-clock, the recompile count (the
-reference's ``jit_recompiles`` counter track; the port has no jit, so its
-traces carry none and the count reads 0), rounds
-per second, and (given ``--metrics``) a per-job cost/fairness summary.
-``--diff other_trace.json`` prints per-phase p50 deltas between two runs;
-``--check-bench BENCH_obs.json [more BENCH_*.json ...]`` compares the
-trace's phase p50s against the benchmark baseline's recorded phases
-(tolerance-gated) and surfaces any ``gate.failures`` recorded inside the
-repo's BENCH_*.json artifacts — phase-level regression checking as a CLI
-one-liner.
+kind), span coverage of engine wall-clock, rounds per second, and (given
+``--metrics``) a per-job cost/fairness summary. ``--diff other_trace.json``
+prints per-phase p50 deltas between two runs.
 
 All pure functions here (``phase_stats``, ``coverage``, ``diff_phases``,
-``check_bench``) are importable for programmatic use; the CLI lives in
+``summarize``) are importable for programmatic use; the CLI lives in
 ``repro_torch.monitoring.__main__``.
 """
 
 from __future__ import annotations
 
-import glob
 import json
-import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.monitoring.trace import DEVICE_PID
+
 # Disjoint per-round engine phases (see core/multijob.py): their summed
 # duration over an ``engine_run`` span is the covered wall-clock.
 ENGINE_PHASES = ("ctx_build", "schedule", "dispatch", "aggregate", "record")
-RECOMPILE_COUNTER = "jit_recompiles"
 
 
 # ---- loading ----
@@ -55,11 +47,15 @@ def load_metrics(path: str) -> List[dict]:
 # ---- trace statistics ----
 
 def phase_stats(events: List[dict]) -> Dict[str, dict]:
-    """Per span-kind wall-clock stats from complete (``ph == "X"``) events."""
+    """Per span-kind wall-clock stats from complete (``ph == "X"``) events;
+    a device range (on the tracer's device track) counts as its own kind,
+    ``"<name> (device)"``."""
     durs: Dict[str, list] = {}
     for ev in events:
         if ev.get("ph") == "X":
-            durs.setdefault(ev["name"], []).append(float(ev.get("dur", 0.0)))
+            name = ev["name"] + (" (device)" if ev.get("pid") == DEVICE_PID
+                                 else "")
+            durs.setdefault(name, []).append(float(ev.get("dur", 0.0)))
     out = {}
     for name, d in sorted(durs.items()):
         a = np.asarray(d) / 1e3  # us -> ms
@@ -71,14 +67,6 @@ def phase_stats(events: List[dict]) -> Dict[str, dict]:
             "p99_ms": float(np.percentile(a, 99)),
         }
     return out
-
-
-def recompile_count(events: List[dict]) -> int:
-    """Final value of the ``jit_recompiles`` counter track (0 if absent,
-    as in every trace of the port, which compiles nothing at run time)."""
-    vals = [ev["args"].get(RECOMPILE_COUNTER, 0) for ev in events
-            if ev.get("ph") == "C" and ev.get("name") == RECOMPILE_COUNTER]
-    return int(max(vals)) if vals else 0
 
 
 def coverage(stats: Dict[str, dict],
@@ -167,7 +155,6 @@ def summarize(trace_path: str,
         "trace": trace_path,
         "phases": stats,
         "coverage": coverage(stats),
-        "recompiles": recompile_count(events),
         "rounds_per_sec": rounds_per_sec(stats),
     }
     if metrics_path:
@@ -179,7 +166,7 @@ def summarize(trace_path: str,
     return out
 
 
-# ---- regression checking ----
+# ---- run diffs ----
 
 def diff_phases(a: Dict[str, dict], b: Dict[str, dict]) -> Dict[str, dict]:
     """Per-phase p50/total deltas of run b relative to run a (shared phases
@@ -194,50 +181,3 @@ def diff_phases(a: Dict[str, dict], b: Dict[str, dict]) -> Dict[str, dict]:
             "total_ms_a": pa["total_ms"], "total_ms_b": pb["total_ms"],
         }
     return out
-
-
-def check_bench(stats: Dict[str, dict], bench_paths: List[str],
-                tolerance: float = 0.5) -> List[str]:
-    """Phase-level regression check against BENCH_*.json artifacts.
-
-    Two sources of failure:
-    - a baseline file carrying a ``phases`` block (``BENCH_obs.json``):
-      any shared phase whose current p50 exceeds baseline * (1 + tolerance).
-      The ``engine_run`` root is skipped — it scales with workload length,
-      not per-round cost, so it never compares across runs of different
-      sizes (per-phase p50s are per-round quantities and do).
-    - any BENCH file whose ``gate.failures`` list is non-empty (the repo's
-      benchmark gates record their own verdicts there).
-
-    ``bench_paths`` entries may be files, directories (scanned for
-    ``BENCH_*.json``), or globs. Returns human-readable failure strings
-    (empty = clean).
-    """
-    paths: List[str] = []
-    for p in bench_paths:
-        if os.path.isdir(p):
-            paths.extend(sorted(glob.glob(os.path.join(p, "BENCH_*.json"))))
-        else:
-            paths.extend(sorted(glob.glob(p)) or [p])
-    failures = []
-    for path in paths:
-        try:
-            with open(path) as f:
-                bench = json.load(f)
-        except (OSError, json.JSONDecodeError) as e:
-            failures.append(f"{path}: unreadable ({e})")
-            continue
-        base = bench.get("phases")
-        if isinstance(base, dict):
-            for name in sorted(set(base) & set(stats) - {"engine_run"}):
-                b50 = float(base[name].get("p50_ms", 0.0))
-                cur = stats[name]["p50_ms"]
-                if b50 > 0 and cur > b50 * (1.0 + tolerance):
-                    failures.append(
-                        f"{path}: phase {name!r} p50 {cur:.3f}ms exceeds "
-                        f"baseline {b50:.3f}ms by more than "
-                        f"{tolerance * 100:.0f}%")
-        gate = bench.get("gate", {})
-        for msg in gate.get("failures", []) or []:
-            failures.append(f"{path}: recorded gate failure: {msg}")
-    return failures

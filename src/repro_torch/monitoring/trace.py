@@ -23,6 +23,19 @@ without allocating anything, and ``counter``/``instant`` return
 immediately: no RNG is touched, no arrays are built, so traced and
 untraced runs execute the SAME computation.
 
+``device_span(...)`` is a span that also times the device work its block
+queues: enabled and with CUDA initialised, it records a timing
+``torch.cuda.Event`` on the current stream at enter and at exit, beside
+the host span. The pairs stay pending (nothing waits for the device on
+the hot path) until ``device_events()`` synchronises once and resolves
+them onto the tracer's own clock (``perf_counter`` microseconds, the
+host spans' clock) through two anchors: an event recorded at ``enable()``
+and one at resolution, each on an idle stream between two host clock
+reads. Between the anchors the map is linear, so drift between the GPU's
+timer and the host clock is corrected. ``events()`` holds host events
+only; ``to_dict()``/``save()`` add the device ranges on a track of their
+own and the anchors as metadata.
+
 Ownership: instrumented library code uses the module-global tracer via
 ``span``/``counter``/``instant``; ``repro_torch.monitoring.session.ObsSession``
 (the ``obs`` spec axis) enables it for the duration of a run and writes the
@@ -33,9 +46,13 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
+
+#: Chrome-trace ``pid`` of the device-range track (no host process's).
+DEVICE_PID = 1 << 30
 
 
 class _NoopSpan:
@@ -73,6 +90,45 @@ class _Span:
         return False
 
 
+class _DeviceSpan(_Span):
+    """A live span that also brackets its block with timing events on the
+    current CUDA stream, resolved later by ``Tracer.device_events``."""
+
+    __slots__ = ("_start",)
+
+    def __enter__(self):
+        self._t0 = time.perf_counter_ns()
+        self._start = self._tracer._record()
+        return self
+
+    def __exit__(self, *exc):
+        end = self._tracer._record() if self._start is not None else None
+        super().__exit__(*exc)
+        if end is not None:
+            self._tracer._add_pending(self._name, self._start, end,
+                                      self._args)
+        return False
+
+
+def _cuda():
+    """``torch`` where CUDA is initialised in this process, else None."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return None
+    return torch
+
+
+def _clock_anchor(torch) -> tuple:
+    """(event, host µs): an event recorded on an idle stream, and the
+    midpoint of the host clock reads around its record."""
+    torch.cuda.synchronize()
+    ev = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter_ns()
+    ev.record()
+    h1 = time.perf_counter_ns()
+    return ev, (h0 + h1) / 2e3
+
+
 class Tracer:
     """In-memory trace-event collector (one per process is the norm)."""
 
@@ -81,6 +137,11 @@ class Tracer:
         self._events: List[dict] = []
         self._lock = threading.Lock()
         self._pid = os.getpid()
+        self._anchor: Optional[tuple] = None   # (event, host µs)
+        self._pending: List[tuple] = []        # unresolved device ranges
+        self._device: List[dict] = []          # resolved device ranges
+        self._anchors: List[dict] = []         # each resolution's anchors
+        self._device_name = ""
 
     # ---- recording ----
 
@@ -90,6 +151,13 @@ class Tracer:
         if not self.enabled:
             return _NOOP
         return _Span(self, name, args)
+
+    def device_span(self, name: str, **args):
+        """``span`` that also times on the device the work its block
+        queues (see the module docstring)."""
+        if not self.enabled:
+            return _NOOP
+        return _DeviceSpan(self, name, args)
 
     def counter(self, name: str, value: float, **args) -> None:
         """Chrome counter event (renders as a stacked track in Perfetto)."""
@@ -122,11 +190,68 @@ class Tracer:
                 "pid": self._pid, "tid": threading.get_ident(),
                 "args": args})
 
+    def anchor_clock(self) -> None:
+        """Record the opening anchor of the device clock, where CUDA is
+        initialised and none is held (``enable()`` calls it; the first
+        device range does where CUDA came up later)."""
+        torch = _cuda()
+        if torch is not None and self._anchor is None:
+            self._anchor = _clock_anchor(torch)
+            self._device_name = (f"cuda:{torch.cuda.current_device()} "
+                                 f"{torch.cuda.get_device_name()}")
+
+    def _record(self):
+        torch = _cuda()
+        if torch is None:
+            return None
+        if self._anchor is None:
+            self.anchor_clock()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _add_pending(self, name: str, start, end,
+                     args: Dict[str, Any]) -> None:
+        with self._lock:
+            self._pending.append((name, start, end, threading.get_ident(),
+                                  args))
+
+    def device_events(self) -> List[dict]:
+        """The device ranges as complete events on the tracer's clock,
+        sorted by start. Resolves the pending ones first: one synchronise,
+        then each event's time since the opening anchor, mapped linearly
+        through the opening anchor and a closing one recorded now (which
+        opens the next resolution)."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        if pending:
+            torch = sys.modules["torch"]
+            (a0, h0), (a1, h1) = self._anchor, _clock_anchor(torch)
+            span_ms = a0.elapsed_time(a1)
+            scale = (h1 - h0) / (span_ms * 1e3) if span_ms > 0 else 1.0
+            host = lambda ev: h0 + a0.elapsed_time(ev) * 1e3 * scale
+            out = []
+            for name, start, end, tid, args in pending:
+                ts = host(start)
+                out.append({"name": name, "ph": "X", "ts": ts,
+                            "dur": host(end) - ts, "pid": DEVICE_PID,
+                            "tid": tid, "args": args})
+            with self._lock:
+                self._device.extend(out)
+                self._device.sort(key=lambda e: e["ts"])
+                self._anchors.append({"host_us": [h0, h1],
+                                      "device_ms": span_ms})
+                self._anchor = (a1, h1)
+        with self._lock:
+            return list(self._device)
+
     # ---- lifecycle / export ----
 
     def clear(self) -> None:
         with self._lock:
             self._events = []
+            self._pending, self._device, self._anchors = [], [], []
+            self._anchor = None
 
     @property
     def num_events(self) -> int:
@@ -137,11 +262,19 @@ class Tracer:
             return list(self._events)
 
     def to_dict(self, process_name: str = "repro") -> dict:
-        """Chrome trace-event JSON object (Perfetto-loadable)."""
+        """Chrome trace-event JSON object (Perfetto-loadable). Device
+        ranges, where there are any, ride on a track of their own, and
+        the device clock's anchors under ``otherData``."""
         meta = [{"name": "process_name", "ph": "M", "pid": self._pid,
                  "tid": 0, "args": {"name": process_name}}]
-        return {"traceEvents": meta + self.events(),
-                "displayTimeUnit": "ms"}
+        device = self.device_events()
+        out = {"traceEvents": meta + self.events(), "displayTimeUnit": "ms"}
+        if device:
+            out["traceEvents"] += [{
+                "name": "process_name", "ph": "M", "pid": DEVICE_PID,
+                "tid": 0, "args": {"name": self._device_name}}] + device
+            out["otherData"] = {"device_clock_anchors": list(self._anchors)}
+        return out
 
     def save(self, path: str, process_name: str = "repro") -> None:
         d = os.path.dirname(path)
@@ -167,6 +300,7 @@ def enabled() -> bool:
 
 def enable() -> None:
     _GLOBAL.enabled = True
+    _GLOBAL.anchor_clock()
 
 
 def disable() -> None:
@@ -179,6 +313,15 @@ def span(name: str, **args):
     if not _GLOBAL.enabled:
         return _NOOP
     return _Span(_GLOBAL, name, args)
+
+
+def device_span(name: str, **args):
+    """``with device_span("local_sgd", job=m): ...`` — global-tracer span
+    that also times its block's device work; the same disabled fast path
+    as ``span``."""
+    if not _GLOBAL.enabled:
+        return _NOOP
+    return _DeviceSpan(_GLOBAL, name, args)
 
 
 def counter(name: str, value: float, **args) -> None:

@@ -119,8 +119,6 @@ def test_single_job_matches_reference(fused):
                              port.run_round(0, ids, r))
         if r == 0:
             assert param_err(ref_params(0), params(0)) <= 1e-5
-    if fused:
-        assert port.recompiles == 0
 
 
 def test_cross_job_lane_matches_reference():
@@ -147,6 +145,81 @@ def test_cross_job_lane_matches_reference():
         port.begin_round(1, np.asarray([3, 4]), 9)
         port.run_round(0, np.asarray([1, 2]), 9)
         port.run_round(1, np.asarray([5, 6]), 9)
+
+
+def test_counters_count_what_local_sgd_trains(monkeypatch):
+    """``counters()`` against the batches the SGD loop is handed: one
+    vmapped step a batch and epoch, the cohort's samples in each."""
+    _, jobs, datasets = setup(num_jobs=2)
+    port = rt.FusedMultiRuntime(jobs, datasets, seed=0, device="cpu")
+    seen = dict(rounds=0, samples=0, sgd_steps=0)
+    sgd = rt._sgd
+
+    def counted(params, grad_fn, xb, yb, steps, epochs, lr, axis):
+        n, steps_, batch = xb.shape[:3]
+        assert steps_ == steps
+        seen["rounds"] += 1
+        seen["samples"] += n * steps * batch * epochs
+        seen["sgd_steps"] += steps * epochs
+        return sgd(params, grad_fn, xb, yb, steps, epochs, lr, axis)
+
+    monkeypatch.setattr(rt, "_sgd", counted)
+    rng = np.random.default_rng(5)
+    flushes = 0
+    for r in range(3):
+        cohorts = [rng.choice(NUM_DEV, int(rng.integers(2, 8)), replace=False)
+                   for _ in jobs]
+        for j, ids in enumerate(cohorts):
+            port.begin_round(j, ids, r)
+        for j, ids in enumerate(cohorts):
+            port.run_round(j, ids, r)
+        flushes += 1
+    assert port.counters() == dict(flushes=flushes, **seen)
+    assert seen["rounds"] == 6 and seen["samples"] > 0
+    assert rt._batches(0, 4) == (0, 0) and rt._batches(3, 4) == (1, 3)
+
+
+def test_traced_flush_names_its_phases_and_cause():
+    """Traced, a flush is a ``fused_round`` span holding each job's
+    ``gather``, ``local_sgd``, ``fedavg`` and ``eval`` spans, and emits the
+    runtime's counters; on the CPU no device range is recorded."""
+    from repro_torch.monitoring import trace
+
+    _, jobs, datasets = setup(num_jobs=2)
+    port = rt.FusedMultiRuntime(jobs, datasets, seed=0, device="cpu")
+    ids = [np.arange(3), np.arange(4, 9)]
+    tracer = trace.get_tracer()
+    tracer.clear()
+    trace.enable()
+    try:
+        for j in range(2):
+            port.begin_round(j, ids[j], 0)
+        port.run_round(1, ids[1], 0)
+        port.run_round(0, ids[0], 0)
+    finally:
+        trace.disable()
+    events = tracer.events()
+    assert tracer.device_events() == []
+    tracer.clear()
+    spans = [e for e in events if e["ph"] == "X"]
+    (flush,) = [e for e in spans if e["name"] == "fused_round"]
+    assert flush["args"] == dict(jobs=2, eval=True, trigger=(1, 0),
+                                 trains=[(0, 0), (1, 0)])
+    phases = [(e["name"], e["args"]["job"]) for e in spans
+              if e["name"] not in ("fused_round", "metrics_sync")]
+    assert phases == [(p, j) for j in range(2)
+                      for p in ("gather", "local_sgd", "fedavg", "eval")]
+    end = flush["ts"] + flush["dur"]
+    for e in spans:
+        if e["name"] != "metrics_sync":
+            assert flush["ts"] <= e["ts"] and e["ts"] + e["dur"] <= end
+            if e is not flush:
+                assert e["args"] == dict(job=e["args"]["job"], round=0,
+                                         model="tiny")
+    counts = {e["name"]: e["args"][e["name"]] for e in events
+              if e["ph"] == "C"}
+    assert counts == port.counters()
+    assert counts["rounds"] == 2 and counts["flushes"] == 1
 
 
 def test_eval_every_matches_reference():
