@@ -11,14 +11,27 @@ report the last evaluated metrics). Jobs sharing a model config form one
 group; the engine announces realised cohorts at launch (``begin_round``)
 and the first result demand flushes every pending round of the group.
 
-Two artifacts of the reference's jit need no counterpart here, since
-PyTorch runs eagerly. Cohorts were padded to power-of-two ``buckets`` with
-zero-weight lanes so that jit would not recompile per cohort size; padded
-lanes add exact zeros to FedAvg and fall outside the robust median, so the
-port trains only the real lanes. ``buckets`` is still accepted (a cohort
-larger than the largest bucket still raises). The reference's lane-free
-dispatch of one-job groups existed for XLA's bitwise tiling; the port
-loops over a group's jobs.
+On CUDA a CUDA graph is the counterpart of the reference's jit for local
+SGD: one vmapped step (forward, ``torch.func.grad`` backward and ``p - lr
+* g``) is captured per group and cohort size ``n`` over static stacked
+parameters (``n`` lanes) and a static batch. A group's first round at a
+given ``n`` runs eagerly on the capture stream (the warm-up capture
+needs), the second captures, and from then on each step is a copy of its
+batch into the static one and a replay; FedAvg reads the static
+parameters and returns fresh ones, so nothing static leaves the round.
+The kernels are the eager step's, so the parameters are bit for bit the
+eager path's. A runtime's graphs share one memory pool: they replay one
+at a time on one stream, and each leaves its results in its static
+parameters, outside the pool, so no graph reads what another's replay
+overwrote there. On the CPU local SGD runs eagerly.
+
+Cohorts were padded to power-of-two ``buckets`` with zero-weight lanes so
+that the reference's jit would not recompile per cohort size; padded lanes
+add exact zeros to FedAvg and fall outside the robust median, so the port
+trains only the real lanes. ``buckets`` is still accepted (a cohort larger
+than the largest bucket still raises). The reference's lane-free dispatch
+of one-job groups existed for XLA's bitwise tiling; the port loops over a
+group's jobs.
 
 Traced (``monitoring.trace``), a flush is one ``fused_round`` device span
 per group (args: the demand that triggered it and every (job, round) it
@@ -26,6 +39,10 @@ trains), and each job's round in it runs under the device spans
 ``gather``, ``local_sgd``, ``fedavg`` and, when due, ``eval`` (args:
 ``job``, ``round``, ``model``). ``counters()`` counts what the runtime has
 trained; a traced flush also emits the counts as counter events.
+``graph_counters()`` counts the graphs' captures, the steps replayed and
+the steps run eagerly on CUDA (all zero on the CPU); a traced flush on
+CUDA emits them as the counter events ``sgd_graph_captures``,
+``sgd_graph_replays`` and ``sgd_eager_steps``.
 
 ``FLJobRuntime`` — the one-job unfused path (same math: host-side
 partition gather, FedAvg and eval each round), behind ``MultiRuntime``.
@@ -40,7 +57,8 @@ paper's fairness term addresses) and whose RATE follows Formula 13.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -116,6 +134,46 @@ def _local_train_batch(params, cfg: ModelConfig, x, y, epochs: int,
     return _sgd(stacked, grad_fn, xb, yb, steps, epochs, lr, axis=1)
 
 
+class _StepGraph:
+    """One vmapped local-SGD step of a cohort of ``n``, captured as a CUDA
+    graph on ``stream`` into the memory pool ``pool``: the gradient at the
+    static stacked parameters (``n`` lanes) and the static batch, then
+    ``p - lr * g`` written back into the parameters (the eager step's
+    ``lr * g`` and subtraction, not ``alpha=``, which rounds otherwise).
+    ``xb``, ``yb``: one step's batch, (n, batch, ...) and (n, batch)."""
+
+    def __init__(self, params, cfg: ModelConfig, lr: float, xb, yb,
+                 stream, pool):
+        n = xb.shape[0]
+        self.params = tree_map(
+            lambda leaf: leaf.new_empty((n, *leaf.shape)), params)
+        self.x = xb.new_empty(xb.shape)
+        self.y = yb.new_empty(yb.shape)
+        grad_fn = torch.func.vmap(torch.func.grad(_loss_fn(cfg)))
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+            g = grad_fn(self.params, self.x, self.y)
+            tree_map(lambda p, gg: p.sub_(lr * gg), self.params, g)
+
+    def run(self, params, xb, yb, steps: int, epochs: int):
+        """``_sgd`` from ``params`` (broadcast over the lanes) on the
+        cohort's batches ``xb`` (n, steps, batch, ...), ``yb``; returns the
+        static parameters, which the next ``run`` overwrites."""
+        tree_map(lambda p, leaf: p.copy_(leaf), self.params, params)
+        for _ in range(epochs):
+            for s in range(steps):
+                self.x.copy_(xb[:, s])
+                self.y.copy_(yb[:, s])
+                self.graph.replay()
+        return self.params
+
+
+#: graph_counters() key -> its counter event
+_GRAPH_EVENTS = dict(captures="sgd_graph_captures",
+                     replays="sgd_graph_replays",
+                     eager_steps="sgd_eager_steps")
+
+
 # ---- cohort-size buckets ----
 
 def default_buckets(num_devices: int, lo: int = 4) -> Tuple[int, ...]:
@@ -157,10 +215,11 @@ def _inject_corruption(p, locals_, corrupt, corrupt_mode: str,
 
 
 def _train_round(params, ids, x, y, partition, sizes, corrupt,
-                 cfg: ModelConfig, epochs: int, batch_size: int, lr: float,
-                 robust: bool, reject_mult: float, corrupt_mode: str,
-                 corrupt_scale: float, tag: Optional[dict] = None):
-    """Gather + local SGD + FedAvg (robust: corruption injected, then
+                 local_train: Callable, robust: bool, reject_mult: float,
+                 corrupt_mode: str, corrupt_scale: float,
+                 tag: Optional[dict] = None):
+    """Gather + local SGD (``local_train(params, xs, ys)``, as
+    ``_local_train_batch``) + FedAvg (robust: corruption injected, then
     screened) for one job's cohort ``ids`` (n,) on the device, each phase
     under a device span carrying ``tag``. ``ids`` and ``corrupt`` (n,)
     may be host arrays. Returns (new_params, rejected count as a 0-dim
@@ -171,8 +230,7 @@ def _train_round(params, ids, x, y, partition, sizes, corrupt,
         idx = partition[ids]                             # (n, W)
         xs, ys, w = x[idx], y[idx], sizes[ids]           # w: real sizes
     with device_span("local_sgd", **tag):
-        locals_ = _local_train_batch(params, cfg, xs, ys, epochs,
-                                     batch_size, lr)
+        locals_ = local_train(params, xs, ys)
     with device_span("fedavg", **tag):
         if not robust:
             return fedavg(locals_, w), torch.zeros((), device=w.device)
@@ -200,6 +258,9 @@ class _FusedGroup:
     sizes: torch.Tensor              # (J, K) f32
     eval_x: torch.Tensor             # (J, E, ...)
     eval_y: torch.Tensor             # (J, E) int64
+    # cohort size -> its _StepGraph on CUDA; None once its first round ran
+    graphs: Dict[int, Optional[_StepGraph]] = dataclasses.field(
+        default_factory=dict)
 
 
 class FusedMultiRuntime:
@@ -243,6 +304,8 @@ class FusedMultiRuntime:
         self.fault_engine = fault_engine
         self.rejected_total = 0.0
         self._counts = dict(flushes=0, rounds=0, samples=0, sgd_steps=0)
+        self._graph_counts = dict(captures=0, replays=0, eager_steps=0)
+        self._capture_stream = self._graph_pool = None   # at first use
         self._model = {jid: job.model.name for jid, job in enumerate(jobs)}
         self._queued: Dict[int, tuple] = {}      # job -> (ids, round_idx)
         self._results: Dict[tuple, tuple] = {}   # (job, round) -> metrics
@@ -340,6 +403,48 @@ class FusedMultiRuntime:
         one a batch and epoch of a round, whatever the cohort's size)."""
         return dict(self._counts)
 
+    def graph_counters(self) -> Dict[str, int]:
+        """Local SGD's dispatch on CUDA, cumulative: ``captures`` (one a
+        group and cohort size), ``replays`` (steps run from a graph) and
+        ``eager_steps`` (steps run eagerly: a cohort size's first round).
+        All zero on the CPU."""
+        return dict(self._graph_counts)
+
+    def _local_train(self, grp: _FusedGroup, params, xs, ys):
+        """``_local_train_batch`` for one of ``grp``'s jobs: eagerly on the
+        CPU; on CUDA from the group's graph for the cohort's size, eagerly
+        on the capture stream in that size's first round (the warm-up) and
+        captured in its second."""
+        n, width = xs.shape[:2]
+        if self.device.type != "cuda" or width == 0:
+            return _local_train_batch(params, grp.cfg, xs, ys, grp.epochs,
+                                      grp.batch_size, grp.lr)
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        stream, counts = self._capture_stream, self._graph_counts
+        steps, _ = _batches(width, grp.batch_size)
+        if n not in grp.graphs:
+            grp.graphs[n] = None
+            counts["eager_steps"] += steps * grp.epochs
+            # Every use of the capture stream waits for the work queued
+            # before it, and the main stream for it, so blocks either
+            # frees are reused in stream order.
+            main = torch.cuda.current_stream(self.device)
+            stream.wait_stream(main)
+            with torch.cuda.stream(stream):
+                out = _local_train_batch(params, grp.cfg, xs, ys, grp.epochs,
+                                         grp.batch_size, grp.lr)
+            main.wait_stream(stream)
+            return out
+        xb, yb, _ = _split_batches(xs, ys, grp.batch_size, axis=1)
+        if grp.graphs[n] is None:
+            grp.graphs[n] = _StepGraph(params, grp.cfg, grp.lr, xb[:, 0],
+                                       yb[:, 0], stream, self._graph_pool)
+            counts["captures"] += 1
+        counts["replays"] += steps * grp.epochs
+        return grp.graphs[n].run(params, xb, yb, steps, grp.epochs)
+
     def _flush(self, trigger: tuple) -> None:
         """Train every queued round, group by group; ``trigger`` is the
         (job, round) whose demand called for it."""
@@ -371,7 +476,7 @@ class FusedMultiRuntime:
                     grp.params[ln], rej = _train_round(
                         grp.params[ln], ids, grp.x[ln], grp.y[ln],
                         grp.partition[ln], grp.sizes[ln], corrupt,
-                        grp.cfg, grp.epochs, grp.batch_size, grp.lr,
+                        functools.partial(self._local_train, grp),
                         self.robust, self.reject_mult, corrupt_mode,
                         corrupt_scale, tag=tag)
                     counts["rounds"] += 1
@@ -390,6 +495,9 @@ class FusedMultiRuntime:
         if trace.enabled():
             for name, value in counts.items():
                 trace.counter(name, value)
+            if self.device.type == "cuda":
+                for key, value in self._graph_counts.items():
+                    trace.counter(_GRAPH_EVENTS[key], value)
 
     # ---- introspection and hand-over (tests / carrying a run across) ----
 
