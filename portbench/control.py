@@ -18,11 +18,23 @@ job, the scheduler's plan replaced by the first free devices where it is
 made (``first_free``). A round that returns its state unchanged reads 1
 on the update numbers by their definition. ``--skip-warmup-sides``
 trains the control alone, on the extra round alone.
+
+For an ``lm_train`` cell each seed's line holds the program's numbers
+(``lm_harness.NUMBERS``) against the float32 reference after the warm-up
+and one check step, and, on the control seeds, the reference in
+float8_e4m3fn (matmul inputs and outputs, the residual stream and the
+gradients through them) in the program's place (``float8_e4m3fn``, the
+control) and each fault of ``LM_FAULTS`` planted in the program: one
+block's MLP output dropped (``dropped_mlp``), a step that trains the first
+half of the batch (``half_batch``), and a step that returns its state
+unchanged (``unchanged_state``). ``lm_line`` reads one seed of a cell
+that the caller loaded.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import sys
@@ -92,6 +104,132 @@ def engine_faults(cell, seeds, launches, records):
                                ("absolute_fairness", absolute))}
 
 
+@contextlib.contextmanager
+def dropped_mlp(layer: int):
+    """The program with block ``layer``'s MLP output multiplied by 0 (its
+    weights then get no gradient)."""
+    from repro_torch.models import transformer
+
+    plain = transformer.mlp_apply
+
+    def mlp_apply(cfg, p, x):
+        y = plain(cfg, p, x)
+        w = p["w_down"]
+        return y * 0 if w.storage_offset() // w.numel() == layer else y
+
+    transformer.mlp_apply = mlp_apply
+    try:
+        yield
+    finally:
+        transformer.mlp_apply = plain
+
+
+@contextlib.contextmanager
+def _wrapped_step(wrap):
+    """``make_train_step`` with its step passed through ``wrap``."""
+    from repro_torch.launch import steps
+
+    plain = steps.make_train_step
+
+    def make_train_step(cfg, train_cfg):
+        step, opt_init = plain(cfg, train_cfg)
+        return wrap(step), opt_init
+
+    steps.make_train_step = make_train_step
+    try:
+        yield
+    finally:
+        steps.make_train_step = plain
+
+
+def unchanged_state():
+    """A step that computes its loss and gradient norm and returns its
+    parameters and optimizer state as they came."""
+    def wrap(step):
+        def frozen(params, opt_state, batch):
+            return (params, opt_state) + (step(params, opt_state, batch)[2],)
+        return frozen
+    return _wrapped_step(wrap)
+
+
+def half_batch():
+    """A step that leaves out the second half of the batch's rows and takes
+    its mean over the rest: the first half, each row twice (the batch keeps
+    its shape, so that it still splits into the microbatches)."""
+    def wrap(step):
+        def half(params, opt_state, batch):
+            return step(params, opt_state, {
+                k: t[:max(1, t.shape[0] // 2)].repeat_interleave(
+                    2, dim=0)[:t.shape[0]] for k, t in batch.items()})
+        return half
+    return _wrapped_step(wrap)
+
+
+#: The lm_train faults planted in the program: name -> context manager
+#: (given the model block).
+LM_FAULTS = {
+    "dropped_mlp": lambda model: dropped_mlp(model["num_layers"] // 2),
+    "half_batch": lambda model: half_batch(),
+    "unchanged_state": lambda model: unchanged_state(),
+}
+LM_CONTROL = "float8_e4m3fn"   # the reference in the program's place
+
+
+def lm_program(cell, arch, seed: int, device: str):
+    """The program's readings of one seed, its parameters before the
+    checked steps after the first, and its state before the check step
+    (on the host), its own state freed."""
+    import torch
+
+    from portbench import lm_harness as lm
+
+    prog = lm.Program(cell, arch, seed, device)
+    side, points = lm.warm_up(prog)
+    host = lm.check_step(prog, side)
+    del prog
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return side, points, host
+
+
+def lm_line(cell, seed: int, device: str, controls: bool,
+            faults=tuple(LM_FAULTS)) -> dict:
+    """One seed's numbers of an lm_train cell: the program against the
+    float32 reference, and on a control seed the reference in float8 in
+    the program's place and each fault planted in the program (against the
+    reference at the faulty program's own parameters)."""
+    from portbench import lm_harness as lm
+
+    t = time.perf_counter()
+    arch = lm.reference(cell)
+    side, points, host = lm_program(cell, arch, seed, device)
+    start = lm.own_start(arch, cell, seed, device)
+    ref = lm.follow(arch, cell, seed, points, host, device, start=start)
+    line = {"workload": cell.name, "seed": seed,
+            "program": lm.numbers(side, ref),
+            "losses": {"program": side.losses, "reference": ref.losses},
+            "grad_norms": {"program": side.grad_norms + [
+                side.window_grad_norm], "reference": ref.grad_norms + [
+                ref.window_grad_norm]}}
+    if controls:
+        other = lm.follow(arch, cell, seed, points, host, device, LM_CONTROL)
+        line[LM_CONTROL] = lm.numbers(other, ref)
+        del other
+    del points, host
+    if controls:
+        for name in faults:
+            with LM_FAULTS[name](cell.config["model"]):
+                bad, bad_points, bad_host = lm_program(cell, arch, seed,
+                                                       device)
+            own = lm.follow(arch, cell, seed, bad_points, bad_host, device,
+                            start=start)
+            line[name] = lm.numbers(bad, own)
+            del bad_points, bad_host
+    line["seconds"] = time.perf_counter() - t
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
@@ -112,6 +250,16 @@ def main(argv=None) -> int:
     seeds = [int(s) for s in args.seeds.split(",") if s]
     controls = {int(s) for s in args.control_seeds.split(",") if s}
     out = open(args.out, "a") if args.out else None
+    if manifest.kind(cell.config) == "lm_train":
+        for seed in seeds:
+            line = lm_line(cell, seed, args.device, seed in controls)
+            guard.check("after the readings")
+            text = json.dumps(line)
+            print(text, flush=True)
+            if out:
+                out.write(text + "\n")
+                out.flush()
+        return 0
     for seed in seeds:
         t = time.perf_counter()
         prep = harness.prepare(cell, seed, args.device)

@@ -37,6 +37,7 @@ UNREACHABLE_TARGET = 2.0      # accuracy never reaches it: no job retires
 MAX_ROUNDS = 10 ** 9
 STEPS_PER_SCALE = 16          # advance_until steps per calibrated round time
 MAX_DRAWS = 1000              # data-seed draws tried for the nominal sizes
+NUMBERS = check.NUMBERS       # the numbers a limits file may hold
 
 
 class Failed(RuntimeError):
@@ -469,36 +470,11 @@ def run(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
     correct = check.verdict(numbers, cell.limits)
     phases["reference_s"] = time.perf_counter() - t
 
-    if trace:
-        metrics = {}
-        for m in cell.per_layer:
-            value = manifest.reader(m["name"], cell.base)(run_data)
-            if value is not None:
-                metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    else:
-        values = {"train_samples_per_s": in_window / seconds,
-                  "setup_s": setup_s}
-        metrics = {m["name"]: {"value": values[m["name"]], "unit": m["unit"]}
-                   for m in cell.end_to_end}
-    dev = {"platform": "gpu" if cuda else "cpu",
-           "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
-           "count": cell.chips, "memory_peak_bytes": int(memory_peak)}
-    out = {"correct": bool(correct), "attempted": len(window_records),
-           "failed": failed, "metrics": metrics, "device": dev}
-    if trace:
-        from portbench import tracing
-
-        dev["busy_s"] = run_data.busy_s
-        dev["window_s"] = window_s
-        lo = int(t0 * 1e9) + offset_ns
-        gaps = tracing.idle_by_host(
-            tracing.busy_intervals(run_data.device_ops), run_data.spans,
-            lo, lo + int(window_s * 1e9))
-        out["breakdown"] = {
-            "device_ops": tracing.top_ops(run_data.device_ops),
-            "idle_gaps": sorted(([k, v] for k, v in gaps.items()),
-                                key=lambda kv: -kv[1])[:10]}
-    out["card"] = power_limit() if cuda else None
+    out = result(cell, correct=correct, attempted=len(window_records),
+                 failed=failed, run_data=run_data, memory_peak=memory_peak,
+                 values={"train_samples_per_s": in_window / seconds,
+                         "setup_s": setup_s},
+                 trace=trace, cuda=cuda, lo_ns=int(t0 * 1e9) + offset_ns)
     out["window"] = {"seconds": window_s, "flush_ends": ends,
                      "samples_in_seconds": in_window,
                      "rounds_flushed": run_data.count.rounds,
@@ -515,8 +491,57 @@ def run(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
                                         for m in sorted(snapshots)],
                      "checked_rounds": [window[m][0] for m in sorted(window)],
                      "phases": phases}
-    out["checks"] = {k: {"value": numbers.get(k, float("nan")),
-                         "limit": v} for k, v in cell.limits.items()}
+    out["checks"] = checks(numbers, cell.limits)
     return out
+
+
+def result(cell: manifest.Cell, *, correct: bool, attempted: int,
+           failed: int, run_data, memory_peak: int, values: Dict[str, float],
+           trace: bool, cuda: bool, lo_ns: int,
+           outside: str = "engine_loop") -> dict:
+    """The result object's head, the same for every kind: ``correct``,
+    ``attempted``, ``failed``, ``metrics`` (``values`` of the cell's
+    end-to-end metrics, or with ``trace`` its per-layer readers' readings
+    of ``run_data``), ``device``, with ``trace`` ``breakdown`` (the device's
+    idle gaps from ``lo_ns`` over ``run_data.window_s`` by the host span
+    open, ``outside`` where none was), and ``card``; the runner adds
+    ``window`` and last ``checks``."""
+    import torch
+
+    if trace:
+        metrics = {}
+        for m in cell.per_layer:
+            value = manifest.reader(m["name"], cell.base)(run_data)
+            if value is not None:
+                metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    else:
+        metrics = {m["name"]: {"value": values[m["name"]], "unit": m["unit"]}
+                   for m in cell.end_to_end}
+    dev = {"platform": "gpu" if cuda else "cpu",
+           "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
+           "count": cell.chips, "memory_peak_bytes": int(memory_peak)}
+    out = {"correct": bool(correct), "attempted": attempted,
+           "failed": failed, "metrics": metrics, "device": dev}
+    if trace:
+        from portbench import tracing
+
+        dev["busy_s"] = run_data.busy_s
+        dev["window_s"] = run_data.window_s
+        gaps = tracing.idle_by_host(
+            tracing.busy_intervals(run_data.device_ops), run_data.spans,
+            lo_ns, lo_ns + int(run_data.window_s * 1e9), outside)
+        out["breakdown"] = {
+            "device_ops": tracing.top_ops(run_data.device_ops),
+            "idle_gaps": sorted(([k, v] for k, v in gaps.items()),
+                                key=lambda kv: -kv[1])[:10]}
+    out["card"] = power_limit() if cuda else None
+    return out
+
+
+def checks(numbers: Dict[str, float], limits: Dict[str, float]) -> dict:
+    """Each number of the limits file beside its limit (nan where the run
+    read none)."""
+    return {k: {"value": numbers.get(k, float("nan")), "limit": v}
+            for k, v in limits.items()}
 
 

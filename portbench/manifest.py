@@ -2,8 +2,13 @@
 
 A cell ``<config>.<traffic>`` reads ``configs/<config>.json``,
 ``traffic/<traffic>.json`` and ``limits/<cell>.json``; a per-layer metric
-``<name>`` is read by ``metrics/<name>.py``'s ``read(run)``. Adding a
-configuration, a mix or a metric adds files and entries, and edits none.
+``<name>`` is read by ``metrics/<name>.py``'s ``read(run)``. The
+configuration's ``kind`` picks the runner (``KINDS``): ``fl_loop`` (the
+default, the multi-job FL loop, ``harness.py``) or ``lm_train`` (one LM
+training step of the port in a closed loop, ``lm_harness.py``, whose
+configuration names its plain reference, ``reference/<file>``). Adding a
+configuration of either kind, a mix or a metric adds files and entries,
+and edits none.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ import dataclasses
 import importlib.util
 import json
 import re
+import sys
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
@@ -19,6 +25,8 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
+#: a configuration's kind -> the module that runs its cells
+KINDS = {"fl_loop": "portbench.harness", "lm_train": "portbench.lm_harness"}
 
 
 def load_json(path: Path) -> dict:
@@ -57,6 +65,7 @@ def load_cell(name: str, manifest: Optional[dict] = None,
     if config.get("name") != w["config"] or w["config"] not in configs:
         raise ValueError(f"configuration file of {w['config']!r} names "
                          f"{config.get('name')!r}")
+    kind(config)
     return Cell(
         name=name, chips=int(w["chips"]), config=config,
         traffic=load_json(base / "traffic" / f"{w['traffic']}.json"),
@@ -66,12 +75,32 @@ def load_cell(name: str, manifest: Optional[dict] = None,
         base=base)
 
 
+def load_module(path: Path, prefix: str = "portbench_file"):
+    """The Python file ``path``, loaded by its path."""
+    name = re.sub(r"[^A-Za-z0-9_]", "_", f"{prefix}_{path.stem}")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod     # where its dataclasses look themselves up
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(metric: str, base: Path = HERE) -> Callable:
     """``read`` of ``metrics/<metric>.py``."""
-    path = base / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{metric.replace('.', '_').replace('-', '_')}",
-        path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_module(base / "metrics" / f"{metric}.py",
+                       "portbench_metric").read
+
+
+def kind(config: dict) -> str:
+    """The configuration's kind (``fl_loop`` where it names none)."""
+    k = config.get("kind", "fl_loop")
+    if k not in KINDS:
+        raise ValueError(f"configuration {config.get('name')!r}: unknown "
+                         f"kind {k!r}; one of {sorted(KINDS)}")
+    return k
+
+
+def runner(cell: Cell):
+    """The module that runs the cell's kind: its ``run(cell, seed,
+    seconds, trace, process_start)`` and its ``NUMBERS``."""
+    return importlib.import_module(KINDS[kind(cell.config)])

@@ -3,6 +3,11 @@
     python3 portbench/run.py --workload group-a.paper --seed 7 \
         --seconds 30 --trace 0
 
+The cell's configuration's ``kind`` picks the runner
+(``manifest.KINDS``): the multi-job FL loop (``harness.py``, the default)
+or one LM training step of the port in a closed loop
+(``lm_harness.py``).
+
 Prints one JSON object as the last line of standard output: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
 with ``--trace 1`` its per-layer metrics), ``device``, with ``--trace 1``
@@ -63,8 +68,8 @@ def main(argv=None) -> int:
         if not (ROOT / "src" / "repro_torch").is_dir():
             raise harness.Failed(f"no program sources under {ROOT / 'src'}")
         cell = manifest.load_cell(args.workload)
-        out = harness.run(cell, args.seed, args.seconds, bool(args.trace),
-                          start)
+        out = manifest.runner(cell).run(cell, args.seed, args.seconds,
+                                        bool(args.trace), start)
         guard.check("before the result")
     except (harness.Failed, ImportError) as e:
         print(f"portbench: {e}", file=sys.stderr)

@@ -19,7 +19,11 @@ def test_top_level_names_are_compared_whole():
 def test_the_harness_and_the_port_load_no_jax():
     code = ("import sys; sys.path[:0] = [%r, %r]\n"
             "import portbench.harness, portbench.control, portbench.check\n"
+            "import portbench.lm_harness, portbench.reference.lm_train\n"
             "import repro_torch.experiment, repro_torch.fl.runtime\n"
+            "import repro_torch.launch.steps, repro_torch.models.transformer\n"
+            "from portbench import manifest\n"
+            "manifest.load_module(manifest.HERE / 'reference' / 'lm_dense.py')\n"
             "from portbench import guard\n"
             "print(guard.forbidden_loaded())\n"
             % (str(manifest.ROOT), str(manifest.ROOT / "src")))
