@@ -258,12 +258,12 @@ exits non-zero with a traceback, and no phase's failure is caught.
    bit; ``python -m repro_torch.launch.train --arch qwen3-1.7b --reduced
    --steps 20`` (on the card by default) exits 0, and its last checkpoint
    carried into the reference's layout (``convert``) matches the
-   manifest's keys, shapes and dtypes. (c) dbrx-132b's and hymba-1.5b's
-   reduced train steps raise ``NoKernelGradError`` under the kernels (the
-   MoE matmul and the scan have no backward pass); under
-   ``set_default_impl("ref")`` dbrx's (f32) trains, its loss and grad norm
-   within 1e-4 of the same step on the CPU. The kernels line counts (a)'s
-   flash launches beside phase 7's.
+   manifest's keys, shapes and dtypes. (c) hymba-1.5b's reduced train
+   step raises ``NoKernelGradError`` under the kernels (the scan has no
+   backward pass); under ``set_default_impl("ref")`` dbrx-132b's (f32)
+   trains, its loss and grad norm within 1e-4 of the same step on the
+   CPU; dbrx's and trinity-mini's steps under the kernels are phase 17's
+   (c). The kernels line counts (a)'s flash launches beside phase 7's.
 
 15. lm-frontend — the audio and VLM families (module 10.c) on the card,
    at full width and depth, their weights drawn on the card
@@ -307,6 +307,33 @@ exits non-zero with a traceback, and no phase's failure is caught.
    Each layout's prefill ms, and block (0, 0)'s gate/up and down launches
    on their captured inputs against the plain version, ``torch.bmm`` and
    the bound. The kernels line counts 2.5's launches by path.
+
+17. moe-train — kernel 2.5 on the MoE training path, each part printed
+   with the card's name and power limit; before each call every count of
+   kernel 2.5 (``launches``, ``backward_launches``,
+   ``launches_by_variant``) is set to 0 and read after it. (a) The grouped
+   form (dropless routing) at trinity-mini's widths, (R, 2048) x (16,
+   2048, 1024) and (R, 1024) x (16, 1024, 2048), in bf16 on the 16 held
+   experts' skewed loads of one cell step (``TRINITY_LOADS``: 32,768
+   picks, two experts empty, one of 17 rows, one of 6,000; R = 33,920
+   rows with the padding): 1 launch forward, 2 backward (the rows form on
+   the weights' transpose, the contraction form), all ``wgmma``; the
+   output, the input and the weight gradients within 2e-2 of the largest
+   entry of the f32 plain product's autograd, the output also against
+   ``moe_gmm_grouped_ref`` on the card; padding rows' outputs and the
+   empty experts' weight gradients exactly 0; the same product with each
+   tile's expert shifted by one must miss by over ``WRONG_MAP_FACTOR``
+   times that tolerance; the forward timed against the plain version.
+   (b) ``moe_gmm`` forward and backward at dbrx-132b's prefill buckets
+   (16, 2560, 6144, 10752) and the down product: 1 and 2 launches, all
+   ``wgmma``, the gradients within 2e-2 of the f32 plain autograd's
+   largest. (c) The reduced trinity-mini (dropless) and dbrx-132b
+   (capacity buckets) f32 train steps under the kernels (``simt``
+   launches forward and backward) against the same step under
+   ``set_default_impl("ref")`` on the card: loss and grad norm within
+   ``GUARD_LOSS_RTOL``, no launch under ``ref``. The kernels line counts
+   its launches beside 2.5's other paths, and its backward launches and
+   variants.
 
 The line before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
@@ -4577,10 +4604,10 @@ def train_cli(torch, dev, arch: str, ck: Path, make_state) -> dict:
 
 
 def train_guard(torch, dev, smi: str) -> dict:
-    """(c): dbrx-132b's and hymba-1.5b's reduced train step on the card
-    raises the kernels' NoKernelGradError under ``cuda``; under ``ref``
-    dbrx's (f32) trains, its loss and grad norm within GUARD_LOSS_RTOL of
-    the same step on the CPU."""
+    """(c): hymba-1.5b's reduced train step on the card raises the
+    kernels' NoKernelGradError under ``cuda``; under ``ref`` dbrx-132b's
+    (f32) trains, its loss and grad norm within GUARD_LOSS_RTOL of the
+    same step on the CPU."""
     import importlib
 
     from repro_torch.config.base import (OptimizerConfig, ShapeConfig,
@@ -4594,7 +4621,7 @@ def train_guard(torch, dev, smi: str) -> dict:
                      microbatches=2)
     shape = ShapeConfig("train", 64, 4, "train")
     raised = {}
-    for arch in ("dbrx-132b", "hymba-1.5b"):
+    for arch in ("hymba-1.5b",):
         cfg = dataclasses.replace(importlib.import_module(
             REDUCED_MODULES[arch]).reduced(), dtype="float32")
         step, opt_init = make_train_step(cfg, tc)
@@ -4607,7 +4634,6 @@ def train_guard(torch, dev, smi: str) -> dict:
         else:
             raise AssertionError(f"{arch}: a train step through kernels "
                                  "without a backward pass did not raise")
-    # dbrx (the last cfg is hymba's)
     cfg = dataclasses.replace(importlib.import_module(
         REDUCED_MODULES["dbrx-132b"]).reduced(), dtype="float32")
     step, opt_init = make_train_step(cfg, tc)
@@ -4893,6 +4919,247 @@ def phase_lm_frontend(torch, dev, smi: str) -> dict:
     return out
 
 
+# ---- phase 17 ------------------------------------------------------------
+
+#: A skewed dropless layer at trinity-mini's cell: the 16 held experts'
+#: loads of one step's 32,768 held picks, two of them empty, one of 17
+#: rows and one about 3x the mean (6,000).
+TRINITY_LOADS = (6000, 0, 3100, 2048, 17, 4100, 0, 1500, 2600, 900, 3300,
+                 129, 2200, 1800, 2000, 3074)
+#: A wrong tile->expert map (each tile's expert shifted by one) must miss
+#: the plain product by this many times the bf16 tolerance.
+WRONG_MAP_FACTOR = 10
+
+
+def rel_max(got, exp) -> float:
+    """max |got - exp| over max |exp| (the CUDA tests' bf16 yardstick:
+    within 2e-2 of the largest entry)."""
+    exp = exp.float()
+    return float((got.float() - exp).abs().max()
+                 / exp.abs().max().clamp_min(1e-30))
+
+
+def reset_gmm(gmm) -> None:
+    gmm.launches = gmm.backward_launches = 0
+    gmm.launches_by_variant = dict.fromkeys(gmm.VARIANTS, 0)
+
+
+def gmm_counts(gmm) -> dict:
+    return dict(launches=gmm.launches,
+                backward_launches=gmm.backward_launches,
+                launches_by_variant={k: v for k, v in
+                                     gmm.launches_by_variant.items() if v})
+
+
+def expect_counts(what: str, got: dict, launches: int, backward: int,
+                  variant: str) -> None:
+    want = dict(launches=launches, backward_launches=backward,
+                launches_by_variant={variant: launches})
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def grouped_case(torch, dev, gmm, loads, din: int, dout: int) -> dict:
+    """(a) One grouped product forward and backward in bf16 on ``loads``,
+    against the plain grouped version on the card and the f32 plain
+    product's autograd; a shifted tile->expert map must fail the
+    tolerance."""
+    rows = gmm.GROUP_ROWS
+    tiles = [-(-n // rows) for n in loads]
+    o = [0]
+    for t in tiles:
+        o.append(o[-1] + t * rows)
+    R, E = o[-1], len(loads)
+    offsets = torch.tensor(o, dtype=torch.int32, device=dev)
+    tile_expert = torch.repeat_interleave(
+        torch.arange(E, device=dev), torch.tensor(tiles, device=dev)).int()
+    g = torch.Generator(device=dev).manual_seed(1700 + din)
+    bf = torch.bfloat16
+    x = torch.zeros((R, din), dtype=bf, device=dev)
+    for e, n in enumerate(loads):
+        x[o[e]:o[e] + n] = torch.randn((n, din), generator=g,
+                                       device=dev).to(bf)
+    w = (torch.randn((E, din, dout), generator=g, device=dev)
+         / din ** 0.5).to(bf)
+    cot = torch.randn((R, dout), generator=g, device=dev).to(bf)
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    reset_gmm(gmm)
+    out = gmm.moe_gmm_grouped(xk, wk, offsets, tile_expert)
+    torch.cuda.synchronize()
+    forward = gmm_counts(gmm)
+    reset_gmm(gmm)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    backward = gmm_counts(gmm)
+    what = f"moe_gmm_grouped ({R}, {din}) x ({E}, {din}, {dout})"
+    expect_counts(what + " forward", forward, 1, 0, "wgmma")
+    expect_counts(what + " backward", backward, 2, 2, "wgmma")
+    plain_bf16 = gmm.moe_gmm_grouped_ref(x, w, offsets)
+    xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
+    exp = torch.cat([xf[o[e]:o[e + 1]] @ wf[e] for e in range(E)])
+    exp.backward(cot.float())
+    errs = dict(out=rel_max(out.detach(), exp.detach()),
+                out_vs_plain_bf16=rel_max(out.detach(), plain_bf16),
+                dx=rel_max(xk.grad, xf.grad), dw=rel_max(wk.grad, wf.grad))
+    tol = GMM_TOL["bfloat16"]
+    if not max(errs.values()) <= tol:
+        raise AssertionError(f"{what}: {errs} (limit {tol})")
+    pad = torch.ones(R, dtype=torch.bool, device=dev)
+    for e, n in enumerate(loads):
+        pad[o[e]:o[e] + n] = False
+    empty = [e for e, n in enumerate(loads) if n == 0]
+    if float(out.detach()[pad].abs().max()) != 0.0 or float(
+            wk.grad[empty].abs().max()) != 0.0:
+        raise AssertionError(f"{what}: a padding row's output or an empty "
+                             "expert's weight gradient is not zero")
+    with torch.no_grad():
+        shifted = gmm.moe_gmm_grouped(x, w, offsets,
+                                      (tile_expert + 1) % E)
+    wrong = rel_max(shifted, exp.detach())
+    if not wrong > WRONG_MAP_FACTOR * tol:
+        raise AssertionError(f"{what}: a shifted tile->expert map reads "
+                             f"{wrong}, within {WRONG_MAP_FACTOR} x {tol}")
+    ms = cuda_time_ms(torch, lambda: gmm.moe_gmm_grouped(x, w, offsets,
+                                                         tile_expert), 5)
+    plain_ms = cuda_time_ms(
+        torch, lambda: gmm.moe_gmm_grouped_ref(x, w, offsets), 5)
+    return dict(label=f"trinity-mini held loads {list(loads)}",
+                shape=(R, din, dout, E), forward=forward, backward=backward,
+                rel_errs=errs, tol=tol, shifted_map_err=wrong,
+                forward_ms=ms, plain_forward_ms=plain_ms)
+
+
+def dbrx_backward_case(torch, dev, gmm, E: int, C: int, din: int,
+                       dout: int) -> dict:
+    """(b) ``moe_gmm`` forward and backward in bf16 at a dbrx-132b prefill
+    bucket shape, against the f32 plain version's autograd."""
+    g = torch.Generator(device=dev).manual_seed(1710 + din)
+    bf = torch.bfloat16
+    x = torch.randn((E, C, din), generator=g, device=dev).to(bf)
+    w = (torch.randn((E, din, dout), generator=g, device=dev)
+         / din ** 0.5).to(bf)
+    cot = torch.randn((E, C, dout), generator=g, device=dev).to(bf)
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    reset_gmm(gmm)
+    out = gmm.moe_gmm(xk, wk)
+    torch.cuda.synchronize()
+    forward = gmm_counts(gmm)
+    reset_gmm(gmm)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    backward = gmm_counts(gmm)
+    what = f"moe_gmm ({E}, {C}, {din}, {dout})"
+    variant = gmm.kernel_variant(bf, E, C, din, dout)
+    expect_counts(what + " forward", forward, 1, 0, variant)
+    expect_counts(what + " backward", backward, 2, 2, variant)
+    del out
+    xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
+    gmm.moe_gmm_ref(xf, wf).backward(cot.float())
+    errs = dict(dx=rel_max(xk.grad, xf.grad), dw=rel_max(wk.grad, wf.grad))
+    tol = GMM_TOL["bfloat16"]
+    if not max(errs.values()) <= tol:
+        raise AssertionError(f"{what} backward: {errs} (limit {tol})")
+    return dict(label=f"dbrx prefill (2 x 4096) ({E}, {C}, {din}, {dout})",
+                forward=forward, backward=backward, rel_errs=errs, tol=tol)
+
+
+def moe_train_steps(torch, dev) -> dict:
+    """(c) The reduced trinity-mini (dropless, grouped form) and dbrx-132b
+    (capacity buckets) train steps in f32 under the kernels, against the
+    same step under ``set_default_impl("ref")`` on the card."""
+    import importlib
+
+    from repro_torch.config.base import (OptimizerConfig, ShapeConfig,
+                                         TrainConfig)
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import REDUCED_MODULES
+    from repro_torch.launch.steps import make_train_step, synth_batch
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import lm_init
+
+    tc = TrainConfig(optimizer=OptimizerConfig(name="adamw", lr=TRAIN_LR),
+                     microbatches=2)
+    shape = ShapeConfig("train", 64, 4, "train")
+    out = {}
+    for arch in ("trinity-mini", "dbrx-132b"):
+        cfg = dataclasses.replace(importlib.import_module(
+            REDUCED_MODULES[arch]).reduced(), dtype="float32")
+        step, opt_init = make_train_step(cfg, tc)
+        batch = synth_batch(cfg, shape, device=dev)
+        row = {}
+        for impl in ("cuda", "ref"):
+            params = lm_init(cfg, seed=0, device=dev)
+            reset_gmm(gmm)
+            reads = moe.load_reads
+            ops.set_default_impl(impl)
+            try:
+                _, _, m = step(params, opt_init(params), batch)
+                torch.cuda.synchronize()
+            finally:
+                ops.set_default_impl("cuda")
+            row[impl] = dict({k: float(v) for k, v in m.items()},
+                             load_reads=moe.load_reads - reads,
+                             **gmm_counts(gmm))
+        cu, rf = row["cuda"], row["ref"]
+        if rf["launches"] or not cu["backward_launches"] or \
+                set(cu["launches_by_variant"]) != {"simt"}:
+            raise AssertionError(f"{arch}: kernel 2.5 launches {cu} under "
+                                 f"cuda and {rf} under ref")
+        gaps = {k: abs(cu[k] - rf[k]) / abs(rf[k])
+                for k in ("loss", "grad_norm")}
+        if not all(g <= GUARD_LOSS_RTOL for g in gaps.values()):
+            raise AssertionError(f"{arch} (reduced, f32): under cuda {cu}, "
+                                 f"under ref {rf}")
+        out[arch] = dict(cuda=cu, ref=rf, rel_gaps=gaps,
+                         rtol=GUARD_LOSS_RTOL)
+    return out
+
+
+def phase_moe_train(torch, dev, smi: str) -> dict:
+    """Phase 17: kernel 2.5 on the MoE training path."""
+    from repro_torch.config.registry import get_arch
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.models.moe import capacity
+
+    grouped = [grouped_case(torch, dev, gmm, TRINITY_LOADS, din, dout)
+               for din, dout in ((2048, 1024), (1024, 2048))]
+    emit(dict(phase="moe-train (a)", nvidia_smi=smi, grouped=grouped))
+    dbrx = get_arch("dbrx-132b")
+    C = capacity(dbrx, 8192)
+    dense = [dbrx_backward_case(torch, dev, gmm, dbrx.num_experts, C, din,
+                                dout)
+             for din, dout in ((dbrx.d_model, dbrx.d_ff),
+                               (dbrx.d_ff, dbrx.d_model))]
+    emit(dict(phase="moe-train (b)", nvidia_smi=smi, dbrx_backward=dense))
+    steps = moe_train_steps(torch, dev)
+    emit(dict(phase="moe-train (c)", nvidia_smi=smi, steps=steps))
+    reset_gmm(gmm)
+    launches = {
+        "moe-train grouped forward and backward at trinity-mini's widths "
+        "(17a)": sum(r[k]["launches"] for r in grouped
+                     for k in ("forward", "backward")),
+        "moe-train dbrx-132b forward and backward (17b)":
+            sum(r[k]["launches"] for r in dense
+                for k in ("forward", "backward")),
+        **{f"moe-train {a} reduced f32 train step (17c)":
+           r["cuda"]["launches"] for a, r in steps.items()}}
+    by_variant = {}
+    for r in grouped + dense:
+        for k in ("forward", "backward"):
+            for v, n in r[k]["launches_by_variant"].items():
+                by_variant[v] = by_variant.get(v, 0) + n
+    for r in steps.values():
+        for v, n in r["cuda"]["launches_by_variant"].items():
+            by_variant[v] = by_variant.get(v, 0) + n
+    backward = sum(r["backward"]["backward_launches"]
+                   for r in grouped + dense) + sum(
+        r["cuda"]["backward_launches"] for r in steps.values())
+    return dict(grouped=grouped, dbrx_backward=dense, steps=steps,
+                launches_by_path=launches, launches_by_variant=by_variant,
+                backward_launches=backward)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's details here")
@@ -4965,6 +5232,7 @@ def main(argv=None) -> int:
     fleet_shard = phase_fleet_shard(torch, dev, smi)
     lm_train = phase_lm_train(torch, dev, smi, keep.pop("qwen3_params"))
     lm_frontend = phase_lm_frontend(torch, dev, smi)
+    moe_train = phase_moe_train(torch, dev, smi)
     at = next(r for r in kern["plan_stats"]
               if r["label"] == "genetic-fleet-scale")
     fc = next(r for r in fl_kern["scatter_add"]
@@ -5091,7 +5359,8 @@ def main(argv=None) -> int:
         "moe-ep dbrx-132b prefill, no mesh (16)":
             moe_ep["no_mesh"]["launches"],
         **{f"moe-ep dbrx-132b prefill, {name} emulate (16)": r["launches"]
-           for name, r in moe_ep["layouts"].items()}}
+           for name, r in moe_ep["layouts"].items()},
+        **moe_train["launches_by_path"]}
     for name, cu, line, label, by_path in (
             ("moe_gmm", "moe_gmm.cu", "moe_gmm.py:20",
              "dbrx prefill (2 x 4096), gate/up", gmm_by_path),
@@ -5103,7 +5372,15 @@ def main(argv=None) -> int:
         at = next(r for r in rows
                   if r["label"] == label and r["dtype"] == "bfloat16")
         extra = {} if name != "moe_gmm" else dict(
-            ep_shards=moe_ep["shard_gmm"])
+            ep_shards=moe_ep["shard_gmm"], train=dict(
+                backward_launches=moe_train["backward_launches"],
+                launches_by_variant=moe_train["launches_by_variant"],
+                grouped=[{k: r[k] for k in ("label", "shape", "rel_errs",
+                                            "shifted_map_err", "forward_ms",
+                                            "plain_forward_ms")}
+                         for r in moe_train["grouped"]],
+                dbrx_backward=[{k: r[k] for k in ("label", "rel_errs")}
+                               for r in moe_train["dbrx_backward"]]))
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{cu}",
@@ -5126,7 +5403,7 @@ def main(argv=None) -> int:
                  schedulers=scheds, service=service,
                  service_kill9=kill9, gym=gym, fleet_shard=fleet_shard,
                  lm_train=lm_train, lm_frontend=lm_frontend,
-                 timeline=TIMELINE),
+                 moe_train=moe_train, timeline=TIMELINE),
             indent=1, default=str))
     print(json.dumps({"kernels": [{k: v for k, v in kr.items()
                                    if k != "shapes"} for kr in kernels]}))

@@ -55,16 +55,25 @@ class ModelConfig:
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
+    qk_norm_eps: float = 1e-6    # the reference hard-codes 1e-6
+    sandwich_norm: bool = False  # also norm each sublayer's output
 
     # Attention behaviour.
     attention: AttentionKind = AttentionKind.FULL
     sliding_window: int = 4096  # used when attention == SLIDING
+    global_attn_every_n: int = 0  # SLIDING: every n-th layer is FULL
+    attn_out_gate: bool = False  # o * sigmoid(x Wg) before Wo
 
     # MoE.
     num_experts: int = 0
     experts_per_token: int = 0
     moe_dense_first_n: int = 0   # leading dense layers before MoE blocks
-    num_shared_experts: int = 0
+    dense_d_ff: int = 0          # their SwiGLU width (0: d_ff)
+    num_shared_experts: int = 0  # 0 or 1: a SwiGLU of d_ff beside them
+    router_score: str = "softmax"  # softmax | sigmoid (normed top-k)
+    route_scale: float = 1.0     # the top-k weights' scale (sigmoid)
+    experts_held: int = 0        # this chip's experts [0, n) (0: all)
+    moe_dropless: bool = False   # every pick runs (no capacity factor)
 
     # SSM / recurrent.
     ssm_state: int = 0           # per-head SSM state width
@@ -103,6 +112,21 @@ class ModelConfig:
         return self.num_experts > 0
 
     @property
+    def experts_here(self) -> int:
+        """The experts this chip holds: ``experts_held``, else all."""
+        return self.experts_held or self.num_experts
+
+    def layer_is_full(self, layer: int) -> bool:
+        """Whether ``layer`` attends over the whole prefix (no window). In
+        a model with ``global_attn_every_n`` set, those full layers take no
+        RoPE (``attention_apply``)."""
+        if self.attention == AttentionKind.FULL:
+            return True
+        n = self.global_attn_every_n
+        return self.attention == AttentionKind.SLIDING and n > 0 \
+            and (layer + 1) % n == 0
+
+    @property
     def is_recurrent(self) -> bool:
         return self.family in (ArchFamily.SSM, ArchFamily.HYBRID)
 
@@ -110,7 +134,9 @@ class ModelConfig:
     def subquadratic(self) -> bool:
         """True if the arch supports O(1)-state or windowed decode at 500k
         ctx."""
-        return (self.attention in (AttentionKind.SLIDING, AttentionKind.NONE)
+        windowed = (self.attention == AttentionKind.SLIDING
+                    and not self.global_attn_every_n)
+        return (windowed or self.attention == AttentionKind.NONE
                 or self.is_recurrent)
 
     def param_count(self) -> int:
@@ -121,16 +147,18 @@ class ModelConfig:
         attn = d * h * hd + 2 * d * kv * hd + h * hd * d  # q, k+v, o
         if self.qk_norm:
             attn += 2 * hd
-        per_layer = attn + 2 * d  # two norms
+        if self.attn_out_gate:
+            attn += d * h * hd
+        norms = (4 if self.sandwich_norm else 2) * d
+        per_layer = attn + norms
         if self.is_moe:
             moe_layers = self.num_layers - self.moe_dense_first_n
             dense_layers = self.moe_dense_first_n
             expert_ff = 3 * d * f  # gate/up/down (SwiGLU)
-            per_moe = (attn + 2 * d + self.num_experts * expert_ff
+            per_moe = (attn + norms + self.experts_here * expert_ff
                        + d * self.num_experts)
             per_moe += self.num_shared_experts * expert_ff
-            dense_f = f if dense_layers else 0
-            per_dense = attn + 2 * d + 3 * d * (dense_f or f)
+            per_dense = attn + norms + 3 * d * (self.dense_d_ff or f)
             body = moe_layers * per_moe + dense_layers * per_dense
         elif self.family == ArchFamily.SSM:
             inner = self.ssm_expand * d

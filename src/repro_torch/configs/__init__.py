@@ -1,5 +1,7 @@
 """Architecture configs of the port: the paper's FL model zoo and the
-dense, MoE, hybrid, SSM, audio and VLM language models.
+dense, MoE, hybrid, SSM, audio and VLM language models, and the port's
+own Trinity-Mini (``trinity_mini.py``), which the JAX package lacks and
+``ASSIGNED_ARCHS`` leaves out.
 
 Importing this package registers every arch with the registry, so
 ``repro_torch.config.get_arch("<id>")`` resolves it, as in the reference.
@@ -16,6 +18,7 @@ from repro_torch.configs import (  # noqa: F401
     paper_models,
     qwen3_1p7b,
     qwen3_8b,
+    trinity_mini,
     xlstm_350m,
 )
 

@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels of the port (``csrc/``), their wrappers and
 plain PyTorch versions, and the ``ops`` dispatch.
 
-``refuse_grad``: a kernel without a backward pass (the MoE grouped matmul,
-the linear scan: the reference's Pallas versions have no VJP) raises
-``NoKernelGradError`` when asked to launch on inputs that need a gradient,
-instead of returning an output that carries none.
+``refuse_grad``: a kernel without a backward pass (the linear scan: the
+reference's Pallas version has no VJP) raises ``NoKernelGradError`` when
+asked to launch on inputs that need a gradient, instead of returning an
+output that carries none. The MoE grouped matmul has a backward of its
+own (``moe_gmm.py``).
 """
 
 import torch
@@ -17,8 +18,7 @@ class NoKernelGradError(RuntimeError):
 
 #: The kernels without a backward pass, and the reference functions they
 #: replace (plain ``pallas_call``s, no VJP).
-NO_GRAD_KERNELS = {"moe_gmm": "repro/kernels/moe_gmm.py:44",
-                   "linear_scan": "repro/kernels/ssm_scan.py:75"}
+NO_GRAD_KERNELS = {"linear_scan": "repro/kernels/ssm_scan.py:75"}
 
 
 def no_grad_error(name: str) -> NoKernelGradError:

@@ -40,6 +40,16 @@
 // - simt (f32, full f32, no TF32): one block of 256 threads per (64 x 64
 //   output tile, expert), each thread 4 x 4 outputs, din in tiles of 16
 //   through shared memory.
+//
+// Grouped forms (moe_gmm_grouped; wgmma and simt), for dropless routing,
+// where expert e's rows are one segment [off[e], off[e + 1]) of a (R, .)
+// buffer, each segment a multiple of 128 rows:
+// - rows: out (R, dout) = x (R, din) times the weights of each row tile's
+//   expert (a table of R / 128 expert ids): the forward and the input
+//   gradient, R / 128 row tiles and no padding to the largest expert.
+// - contraction: out[e] (M, N) = a[:, off[e]:off[e + 1]] b[off[e]:off[e + 1]]
+//   with a (M, R) and b (R, N): the weight gradient xg^T dout, each expert
+//   contracting over its own segment (zeros where it is empty).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,6 +60,14 @@
 namespace {
 
 enum Variant { kSimt = 0, kMma = 1, kWgmma = 2 };
+enum Mode { kUniform = 0, kRows = 1, kContraction = 2 };
+constexpr int kGroupRows = 128;  // segments of the grouped forms
+
+// The grouped forms' tables (both null: the uniform (E, C, din) form).
+struct Groups {
+  const int* tile_expert;  // rows: the expert of each 128-row tile
+  const int* offsets;      // contraction: E + 1 row offsets
+};
 
 // ---- bf16: tensor cores (mma.sync) ----------------------------------------
 
@@ -243,17 +261,26 @@ constexpr int kWBBox = kWK * 64 * 2;     // one 64 x 64 box of B, 8 KB
 constexpr int kWStageBytes = kWABytes + 4 * kWBBox;  // 48 KB
 constexpr size_t kWSmem = 1024 + kWStages * kWStageBytes + 2 * kWStages * sizeof(uint64_t);
 
-// grid (ceil(C / 128), ceil(dout / 256), E)
+// grid (ceil(C / 128), ceil(dout / 256), E), or for the grouped rows
+// (R / 128, ceil(dout / 256), 1). The maps' third coordinates: x's block
+// ex (0 where grouped), w's block ew (a row tile's expert where grouped by
+// rows, 0 where grouped by contraction); din runs over [kbeg, kend).
 __global__ void __launch_bounds__(kWThreads, 1)
 gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                  const __grid_constant__ CUtensorMap wmap, __nv_bfloat16* __restrict__ out,
-                 int C, int din, int dout) {
+                 int C, int din, int dout, Groups g) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kWStages * kWStageBytes);
   uint64_t* empty = full + kWStages;
   const int m0 = blockIdx.x * kWM, n0 = blockIdx.y * kWN, e = blockIdx.z;
-  const int nk = (din + kWK - 1) / kWK;
+  const bool grouped = g.tile_expert != nullptr || g.offsets != nullptr;
+  const int ex = grouped ? 0 : e;
+  const int ew = g.tile_expert ? __ldg(g.tile_expert + blockIdx.x) : (grouped ? 0 : e);
+  const int eo = g.tile_expert ? 0 : e;
+  const int kbeg = g.offsets ? __ldg(g.offsets + e) : 0;
+  const int kend = g.offsets ? __ldg(g.offsets + e + 1) : din;
+  const int nk = (kend - kbeg + kWK - 1) / kWK;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -275,11 +302,11 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         if (kt >= kWStages) hopper::mbar_wait(&empty[s], ((kt / kWStages) - 1) & 1);
         uint8_t* a = smem + s * kWStageBytes;
         hopper::mbar_expect_tx(&full[s], kWStageBytes);
-        hopper::tma_load_3d(a, &xmap, &full[s], kt * kWK, m0, e);
+        hopper::tma_load_3d(a, &xmap, &full[s], kbeg + kt * kWK, m0, ex);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          hopper::tma_load_3d(a + kWABytes + j * kWBBox, &wmap, &full[s], n0 + 64 * j, kt * kWK,
-                              e);
+          hopper::tma_load_3d(a + kWABytes + j * kWBBox, &wmap, &full[s], n0 + 64 * j,
+                              kbeg + kt * kWK, ew);
       }
     }
   } else {  // consumers: rows 64 (wg - 1) .. + 63 of the tile
@@ -309,7 +336,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 
     const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int row0 = m0 + c * 64 + w * 16 + lane / 4;
-    __nv_bfloat16* oe = out + static_cast<int64_t>(e) * C * dout;
+    __nv_bfloat16* oe = out + static_cast<int64_t>(eo) * C * dout;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int col = n0 + 8 * j + 2 * (lane % 4);
@@ -325,8 +352,10 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-cudaError_t launch_wgmma(const void* xg, const void* wg, void* out, int E, int C, int din,
-                         int dout, cudaStream_t s) {
+// x read as (xe, C, din) blocks and w as (we, din, dout), gz blocks of the
+// grid along z.
+cudaError_t launch_wgmma(const void* xg, const void* wg, void* out, int xe, int we, int gz, int C,
+                         int din, int dout, Groups g, cudaStream_t s) {
   static bool configured = false;  // shared memory above 48 KB is opt-in
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -336,22 +365,22 @@ cudaError_t launch_wgmma(const void* xg, const void* wg, void* out, int E, int C
   }
   CUtensorMap xmap, wmap;
   const cuuint64_t xdims[3] = {static_cast<cuuint64_t>(din), static_cast<cuuint64_t>(C),
-                               static_cast<cuuint64_t>(E)};
+                               static_cast<cuuint64_t>(xe)};
   const cuuint64_t xstrides[2] = {static_cast<cuuint64_t>(din) * 2,
                                   static_cast<cuuint64_t>(C) * din * 2};
   const cuuint32_t xbox[3] = {kWK, kWM, 1};
   cudaError_t err = hopper::bf16_map(&xmap, xg, 3, xdims, xstrides, xbox);
   if (err != cudaSuccess) return err;
   const cuuint64_t wdims[3] = {static_cast<cuuint64_t>(dout), static_cast<cuuint64_t>(din),
-                               static_cast<cuuint64_t>(E)};
+                               static_cast<cuuint64_t>(we)};
   const cuuint64_t wstrides[2] = {static_cast<cuuint64_t>(dout) * 2,
                                   static_cast<cuuint64_t>(din) * dout * 2};
   const cuuint32_t wbox[3] = {64, kWK, 1};
   err = hopper::bf16_map(&wmap, wg, 3, wdims, wstrides, wbox);
   if (err != cudaSuccess) return err;
-  const dim3 grid((C + kWM - 1) / kWM, (dout + kWN - 1) / kWN, E);
+  const dim3 grid((C + kWM - 1) / kWM, (dout + kWN - 1) / kWN, gz);
   gmm_wgmma_kernel<<<grid, kWThreads, kWSmem, s>>>(xmap, wmap, static_cast<__nv_bfloat16*>(out),
-                                                   C, din, dout);
+                                                   C, din, dout, g);
   return cudaGetLastError();
 }
 
@@ -361,15 +390,20 @@ constexpr int kFT = 64;    // output tile edge
 constexpr int kFK = 16;    // din per tile
 constexpr int kFThreads = 256;
 
-// grid (ceil(C / 64), ceil(dout / 64), E)
+// grid (ceil(C / 64), ceil(dout / 64), E); the grouped forms as the wgmma
+// kernel's, a row tile's expert read per 128 rows.
 __global__ void __launch_bounds__(kFThreads)
 gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               float* __restrict__ out, int C, int din, int dout) {
+               float* __restrict__ out, int C, int din, int dout, Groups g) {
   __shared__ float as[kFK][kFT + 4];  // transposed: as[k][m]
   __shared__ float bs[kFK][kFT + 4];
   const int m0 = blockIdx.x * kFT, n0 = blockIdx.y * kFT, e = blockIdx.z;
-  const float* xe = x + static_cast<int64_t>(e) * C * din;
-  const float* we = w + static_cast<int64_t>(e) * din * dout;
+  const bool grouped = g.tile_expert != nullptr || g.offsets != nullptr;
+  const int ew = g.tile_expert ? __ldg(g.tile_expert + m0 / kGroupRows) : (grouped ? 0 : e);
+  const float* xe = x + static_cast<int64_t>(grouped ? 0 : e) * C * din;
+  const float* we = w + static_cast<int64_t>(ew) * din * dout;
+  const int kbeg = g.offsets ? __ldg(g.offsets + e) : 0;
+  const int kend = g.offsets ? __ldg(g.offsets + e + 1) : din;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float acc[4][4];
 #pragma unroll
@@ -377,15 +411,15 @@ gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < din; k0 += kFK) {
+  for (int k0 = kbeg; k0 < kend; k0 += kFK) {
     __syncthreads();
     for (int i = threadIdx.x; i < kFT * kFK; i += kFThreads) {
       const int m = i / kFK, k = i % kFK;
-      as[k][m] = (m0 + m < C && k0 + k < din)
+      as[k][m] = (m0 + m < C && k0 + k < kend)
                      ? xe[static_cast<int64_t>(m0 + m) * din + k0 + k]
                      : 0.0f;
       const int kb = i / kFT, n = i % kFT;
-      bs[kb][n] = (k0 + kb < din && n0 + n < dout)
+      bs[kb][n] = (k0 + kb < kend && n0 + n < dout)
                       ? we[static_cast<int64_t>(k0 + kb) * dout + n0 + n]
                       : 0.0f;
     }
@@ -404,7 +438,7 @@ gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
   }
-  float* oe = out + static_cast<int64_t>(e) * C * dout;
+  float* oe = out + static_cast<int64_t>(g.tile_expert ? 0 : e) * C * dout;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + ty + 16 * i;
@@ -433,7 +467,7 @@ extern "C" int moe_gmm(const void* xg, const void* wg, void* out, int dtype, int
   if (variant == kWgmma) {
     if (dtype != 1 || din == 0 || din % 8 != 0 || dout % 8 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(launch_wgmma(xg, wg, out, E, C, din, dout, s));
+    return static_cast<int>(launch_wgmma(xg, wg, out, E, E, E, C, din, dout, Groups{}, s));
   }
   if (variant == kMma) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -449,6 +483,37 @@ extern "C" int moe_gmm(const void* xg, const void* wg, void* out, int dtype, int
   const dim3 grid((C + kFT - 1) / kFT, (dout + kFT - 1) / kFT, E);
   gmm_f32_kernel<<<grid, kFThreads, 0, s>>>(static_cast<const float*>(xg),
                                             static_cast<const float*>(wg),
-                                            static_cast<float*>(out), C, din, dout);
+                                            static_cast<float*>(out), C, din, dout, Groups{});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The grouped forms (see the top of the file); a, b, out one dtype (0:
+// float32, 1: bfloat16), contiguous, 16-byte aligned; variant 0 simt
+// (f32) or 2 wgmma (bf16, K and N multiples of 8); table on the device,
+// int32. mode 1 (rows): a (M, K) with M = R a multiple of 128, b (E, K,
+// N), table the M / 128 row tiles' experts, out (M, N). mode 2
+// (contraction): a (M, K), b (K, N) with K = R a multiple of 128, table
+// the E + 1 offsets (multiples of 128), out (E, M, N). Returns
+// cudaErrorInvalidValue for a call the form cannot take.
+extern "C" int moe_gmm_grouped(const void* a, const void* b, void* out, int dtype, int variant,
+                               int mode, int E, int M, int K, int N, const int* table,
+                               void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || E <= 0) return 0;
+  const bool rows = mode == kRows;
+  if ((!rows && mode != kContraction) || (rows ? M : K) % kGroupRows != 0 || E > 65535 ||
+      (M + kFT - 1) / kFT > 65535 || table == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Groups g = rows ? Groups{table, nullptr} : Groups{nullptr, table};
+  const int gz = rows ? 1 : E;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == kWgmma) {
+    if (dtype != 1 || K % 8 != 0 || N % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_wgmma(a, b, out, 1, rows ? E : 1, gz, M, K, N, g, s));
+  }
+  if (variant != kSimt || dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((M + kFT - 1) / kFT, (N + kFT - 1) / kFT, gz);
+  gmm_f32_kernel<<<grid, kFThreads, 0, s>>>(static_cast<const float*>(a),
+                                            static_cast<const float*>(b),
+                                            static_cast<float*>(out), M, K, N, g);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,18 +7,20 @@ because the tensors lie on the CPU. There is no ``emulate`` mode: a PyTorch
 restatement of the kernel's tiling would prove nothing about the CUDA code.
 
 ``set_default_impl`` flips the LLM zoo's kernels (``attention``,
-``decode_attention``, ``moe_gmm``, ``linear_scan``, ``rmsnorm``) between
-the kernels (``cuda``, the default) and the plain versions (``ref``), so a
+``decode_attention``, ``moe_gmm``, ``moe_gmm_grouped``, ``linear_scan``,
+``rmsnorm``) between the kernels (``cuda``, the default) and the plain
+versions (``ref``), so a
 whole model can be checked against itself on the card; a call's own
 ``impl=`` wins. ``linear_scan_step`` (one decode step) has no kernel, as in
 the reference.
 
-Under autograd only ``attention`` launches its kernel: flash attention's
+Under autograd ``attention`` launches its kernel forward, and its
 backward is the autograd of its plain version, as the reference's
-``custom_vjp`` is the VJP of its oracle. ``moe_gmm`` and ``linear_scan``
-have no VJP in the reference and no backward pass here; asked for a
-gradient on the card they raise ``NoKernelGradError``, so a MoE, hybrid or
-SSM model trains on the card under ``impl="ref"``.
+``custom_vjp`` is the VJP of its oracle. ``moe_gmm`` launches its kernel
+forward and backward (a backward of the port's own; the reference's has no
+VJP). ``linear_scan`` has no VJP in the reference and no backward pass
+here; asked for a gradient on the card it raises ``NoKernelGradError``, so
+a hybrid or SSM model trains on the card under ``impl="ref"``.
 """
 
 from __future__ import annotations
@@ -112,6 +114,14 @@ def moe_gmm(xg, wg, impl: Optional[str] = None):
     if _resolve(impl) == "ref":
         return _gmm.moe_gmm_ref(xg, wg)
     return _gmm.moe_gmm(xg, wg)
+
+
+def moe_gmm_grouped(x, wg, offsets, tile_expert, impl: Optional[str] = None):
+    """Grouped expert matmul over row segments, (R, din) x (E, din, dout)
+    -> (R, dout); see kernels/moe_gmm.py."""
+    if _resolve(impl) == "ref":
+        return _gmm.moe_gmm_grouped_ref(x, wg, offsets)
+    return _gmm.moe_gmm_grouped(x, wg, offsets, tile_expert)
 
 
 def linear_scan(q, k, v, decay, init_state=None, impl: Optional[str] = None,

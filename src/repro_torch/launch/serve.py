@@ -48,6 +48,8 @@ REDUCED_MODULES = {
     "xlstm-350m": "repro_torch.configs.xlstm_350m",
     "musicgen-medium": "repro_torch.configs.musicgen_medium",
     "paligemma-3b": "repro_torch.configs.paligemma_3b",
+    "trinity-mini": "repro_torch.configs.trinity_mini",
+    "trinity-mini-ep8-8l": "repro_torch.configs.trinity_mini",
 }
 
 

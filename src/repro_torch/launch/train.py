@@ -8,9 +8,10 @@ dims). The driver wires together what the reference's
 (``repro/launch/train.py``) does: the config registry, the synthetic token
 corpus (``TokenBatcher``), ``make_train_step`` (AdamW at ``--lr``, one
 microbatch), checkpoints, and ``run_elastic``. ``--device`` (default
-``cuda``) places the params and batches. On the card the MoE, hybrid and
-SSM families need ``ops.set_default_impl("ref")``: their kernels have no
-backward pass (``kernels.NoKernelGradError``). The audio and VLM archs
+``cuda``) places the params and batches. On the card the hybrid and SSM
+families need ``ops.set_default_impl("ref")``: the linear scan has no
+backward pass (``kernels.NoKernelGradError``); the MoE family trains
+through its grouped matmul's backward. The audio and VLM archs
 (musicgen-medium, paligemma-3b) train on random frontend embeddings, as in
 the reference.
 """
@@ -102,17 +103,22 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def refuse_kernels_without_backward(cfg, device) -> None:
+    """Raise ``NoKernelGradError`` at once (not after every restart of
+    ``run_elastic``) where training ``cfg`` on ``device`` would launch the
+    linear scan, which has no backward pass: the hybrid and SSM families
+    on the card under the kernels."""
+    if (torch.device(device).type == "cuda"
+            and cfg.family in (ArchFamily.HYBRID, ArchFamily.SSM)
+            and ops.get_default_impl() == "cuda"):
+        raise no_grad_error("linear_scan")
+
+
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     args = build_parser().parse_args(argv)
 
     cfg = load_config(args.arch, args.reduced)
-    if (torch.device(args.device).type == "cuda"
-            and cfg.family in (ArchFamily.MOE, ArchFamily.HYBRID,
-                               ArchFamily.SSM)
-            and ops.get_default_impl() == "cuda"):
-        # fail at once, not after every restart of run_elastic
-        raise no_grad_error("moe_gmm" if cfg.family == ArchFamily.MOE
-                            else "linear_scan")
+    refuse_kernels_without_backward(cfg, args.device)
 
     tc = TrainConfig(optimizer=OptimizerConfig(name="adamw", lr=args.lr),
                      microbatches=1)

@@ -6,6 +6,14 @@ prefill, decode attention for one-token steps) or their plain versions
 (``ref``). Params follow the reference's layout (``repro/models/
 attention.py``).
 
+Per layer (``attention_apply``'s ``layer``): a model whose
+``global_attn_every_n`` is set attends over a window on most layers and
+over the whole prefix on every n-th (``ModelConfig.layer_is_full``), with
+no RoPE on those full layers. ``attn_out_gate`` adds
+a sigmoid gate on the heads' output, ``o * sigmoid(x Wg)``, before Wo
+(Trinity's AFMoE). Serving such a mixed model is not ported:
+``init_kv_cache`` refuses it.
+
 ``attention_decode`` writes the new token's k and v into the cache IN
 PLACE and returns the same cache (the reference returns updated copies,
 and its serving step donates the old ones); a write at a position >= T is
@@ -27,7 +35,6 @@ from repro_torch.launch.sharding import (is_dtensor, local_apply,
 from repro_torch.models.layers import normal, ones, param_dtype, rope, \
     use_param
 
-QK_NORM_EPS = 1e-6  # the reference hard-codes it (not cfg.norm_eps)
 
 
 def attention_init(cfg: ModelConfig, rng: np.random.Generator):
@@ -40,6 +47,8 @@ def attention_init(cfg: ModelConfig, rng: np.random.Generator):
         "wv": normal(rng, (d, kv * hd), s, pd),
         "wo": normal(rng, (h * hd, d), 1.0 / np.sqrt(h * hd), pd),
     }
+    if cfg.attn_out_gate:
+        p["wg"] = normal(rng, (d, h * hd), s, pd)
     if cfg.qk_norm:
         p["q_norm"] = ones((hd,), pd)
         p["k_norm"] = ones((hd,), pd)
@@ -53,6 +62,8 @@ def attention_axes(cfg: ModelConfig):
              else ("embed", None))
     a = {"wq": ("embed", "qkv"), "wk": kv_ax, "wv": kv_ax,
          "wo": ("qkv", "embed")}
+    if cfg.attn_out_gate:
+        a["wg"] = ("embed", "qkv")
     if cfg.qk_norm:
         a["q_norm"] = (None,)
         a["k_norm"] = (None,)
@@ -60,14 +71,14 @@ def attention_axes(cfg: ModelConfig):
 
 
 def _qk_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = QK_NORM_EPS) -> torch.Tensor:
+             eps: float) -> torch.Tensor:
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, use_rope: bool = True):
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -75,10 +86,11 @@ def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
     k = split_dim(x @ use_param(p["wk"], dt, "embed", "qkv"), 2, (kv, hd))
     v = split_dim(x @ use_param(p["wv"], dt, "embed", "qkv"), 2, (kv, hd))
     if cfg.qk_norm:
-        q = _qk_norm(q, p["q_norm"])
-        k = _qk_norm(k, p["k_norm"])
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+        q = _qk_norm(q, p["q_norm"], cfg.qk_norm_eps)
+        k = _qk_norm(k, p["k_norm"], cfg.qk_norm_eps)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     if S > 1:
         # prefill: the head axis sharded (unevenly if need be); decode's
         # one-token projections keep the cache's layout
@@ -115,21 +127,38 @@ def _attend_cache(cfg, q, k_cache, v_cache, lengths):
                        q, k_cache, v_cache, lengths)
 
 
+def _output(p, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The heads' output (B, S, h * hd), gated where the layer has a gate,
+    through Wo."""
+    if "wg" in p:
+        out = out * torch.sigmoid(
+            x @ use_param(p["wg"], x.dtype, "embed", "qkv"))
+    return out @ use_param(p["wo"], x.dtype, "qkv", "embed")
+
+
 def attention_apply(cfg: ModelConfig, p, x: torch.Tensor,
-                    positions: torch.Tensor) -> torch.Tensor:
-    """Causal self-attention over the full sequence (prefill)."""
-    q, k, v = _project_qkv(cfg, p, x, positions)
+                    positions: torch.Tensor, layer: int = 0) -> torch.Tensor:
+    """Causal self-attention over the full sequence (prefill), windowed or
+    not as ``layer`` is (``ModelConfig.layer_is_full``)."""
+    full = cfg.layer_is_full(layer)
+    q, k, v = _project_qkv(cfg, p, x, positions,
+                           use_rope=not (full and cfg.global_attn_every_n))
     window = (cfg.sliding_window if cfg.attention == AttentionKind.SLIDING
-              else None)
+              and not full else None)
     out = _attend(q, k, v, window)
     out = shard(merge_dims(out, 2), "batch", None, "act_mlp")
-    return out @ use_param(p["wo"], x.dtype, "qkv", "embed")
+    return _output(p, x, out)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                   device="cuda") -> Dict[str, torch.Tensor]:
     """Zero k and v caches for every layer, stacked: (L, B, T, kv, hd),
-    with T = min(max_len, sliding_window) for sliding-window archs."""
+    with T = min(max_len, sliding_window) for sliding-window archs. A model
+    that mixes windowed and full layers has no cache here."""
+    if cfg.global_attn_every_n:
+        raise NotImplementedError(
+            f"{cfg.name}: serving a model that mixes windowed and full "
+            "attention layers is not ported (no per-layer cache length)")
     kv, hd = cfg.num_kv_heads, cfg.head_dim
     if cfg.attention == AttentionKind.SLIDING:
         max_len = min(max_len, cfg.sliding_window)
@@ -179,6 +208,4 @@ def attention_decode(cfg: ModelConfig, p, x: torch.Tensor,
              "v": _write_row(cache["v"], slot, v[:, 0])}
     eff_len = torch.clamp(length + 1, max=T).to(torch.int32)
     out = _attend_cache(cfg, q[:, 0], cache["k"], cache["v"], eff_len)
-    y = merge_dims(out[:, None], 2) @ use_param(p["wo"], x.dtype, "qkv",
-                                                "embed")
-    return y, cache
+    return _output(p, x, merge_dims(out[:, None], 2)), cache

@@ -127,8 +127,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 # ---- MLP (SwiGLU / GeGLU / GELU) ----
 
-def mlp_init(cfg: ModelConfig, rng: np.random.Generator):
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_init(cfg: ModelConfig, rng: np.random.Generator, width: int = 0):
+    """The MLP's weights, ``width`` (default ``d_ff``) wide."""
+    d, f = cfg.d_model, width or cfg.d_ff
     s_in = 1.0 / np.sqrt(d)
     s_out = 1.0 / np.sqrt(f)
     pd = param_dtype(cfg)

@@ -38,6 +38,28 @@ lower expert id first among equal ones (a stable descending sort; a plain
 ``torch.topk`` promises no order among ties). The scatter into the buckets
 drops picks without a host sync: they write to one spare row past the
 buckets (the reference's spare bucket E_local).
+
+Trinity's AFMoE (``router_score="sigmoid"``): scores ``sigmoid(x W_r)`` in
+float32, the k largest picked as above, their weights ``s / (sum s +
+1e-20) * route_scale``; a shared SwiGLU expert (``p["shared"]``, which
+``models/transformer.py`` adds to the routed part); and dropless routing
+(``moe_dropless``): the picks are counted per expert on the device and
+read to the host once per layer and forward (``load_reads``); each held
+expert's picks fill a segment of one (R, d) buffer, rounded up to the
+grouped form's ``GROUP_ROWS`` with zero rows, and the three grouped
+matmuls (``ops.moe_gmm_grouped``, kernel 2.5's grouped form) run each row
+tile against its expert's weights: the work follows the held picks, not
+the largest expert's load. ``experts_held`` < E makes
+the layer hold experts [0, experts_held) with no mesh: it routes over all
+E and returns its own experts' part, as one chip of an expert-parallel
+deployment would before the exchange.
+
+Tracing (``monitoring/trace.py``, free when off): device spans
+``moe_route``, ``moe_experts`` and ``moe_combine`` (arg ``layer``) around
+the three stages, and counter events ``moe_rows_launched`` (rows run,
+padding included) and ``moe_load_reads`` (host reads so far, 0 on the
+capacity path), with ``moe_rows_routed`` and ``moe_max_load`` where the
+load is read.
 """
 
 from __future__ import annotations
@@ -48,33 +70,45 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.kernels import moe_gmm as gmm_kernel
 from repro_torch.kernels import ops
 from repro_torch.launch import sharding
-from repro_torch.models.layers import normal, param_dtype, use_param
+from repro_torch.models.layers import (mlp_axes, mlp_init, normal,
+                                       param_dtype, use_param)
+from repro_torch.monitoring.trace import counter, device_span
 
 CAPACITY_FACTOR = 1.25
 EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
+#: Host reads of a layer's expert load since import (dropless routing).
+load_reads = 0
 
 
 def moe_init(cfg: ModelConfig, rng: np.random.Generator):
     d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    held = cfg.experts_here
     s_in, s_out = 1.0 / np.sqrt(d), 1.0 / np.sqrt(f)
     pd = param_dtype(cfg)
-    return {
+    p = {
         "router": normal(rng, (d, E), s_in, pd),
-        "w_gate": normal(rng, (E, d, f), s_in, pd),
-        "w_up": normal(rng, (E, d, f), s_in, pd),
-        "w_down": normal(rng, (E, f, d), s_out, pd),
+        "w_gate": normal(rng, (held, d, f), s_in, pd),
+        "w_up": normal(rng, (held, d, f), s_in, pd),
+        "w_down": normal(rng, (held, f, d), s_out, pd),
     }
+    if cfg.num_shared_experts:
+        p["shared"] = mlp_init(cfg, rng)
+    return p
 
 
-def moe_axes():
+def moe_axes(cfg: ModelConfig = None):
     # Storage: experts over "model" (EP) and the contraction dim over
     # "data" (ZeRO-3); the EP path gathers the local experts' weights.
-    return {"router": (None, None),
-            "w_gate": ("experts", "embed", None),
-            "w_up": ("experts", "embed", None),
-            "w_down": ("experts", "mlp_zero", None)}
+    a = {"router": (None, None),
+         "w_gate": ("experts", "embed", None),
+         "w_up": ("experts", "embed", None),
+         "w_down": ("experts", "mlp_zero", None)}
+    if cfg is not None and cfg.num_shared_experts:
+        a["shared"] = mlp_axes(cfg)
+    return a
 
 
 def capacity(cfg: ModelConfig, tokens: int) -> int:
@@ -84,13 +118,19 @@ def capacity(cfg: ModelConfig, tokens: int) -> int:
 
 
 def route(cfg: ModelConfig, p, xf: torch.Tensor):
-    """xf (T, d) -> (weights (T, k) float32, summing to 1 per token; expert
-    ids (T, k), the largest probability first)."""
+    """xf (T, d) -> (weights (T, k) float32, summing to 1 per token, or to
+    ``route_scale`` under sigmoid scores; expert ids (T, k), the largest
+    score first)."""
     logits = (xf @ use_param(p["router"], xf.dtype)).float()
-    probs = torch.softmax(logits, dim=-1)
-    top, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    sigmoid = cfg.router_score == "sigmoid"
+    scores = torch.sigmoid(logits) if sigmoid else \
+        torch.softmax(logits, dim=-1)
+    top, ids = torch.sort(scores, dim=-1, descending=True, stable=True)
     k = cfg.experts_per_token
     weights, ids = top[:, :k], ids[:, :k]
+    if sigmoid:
+        return (weights / (weights.sum(-1, keepdim=True) + 1e-20)
+                * cfg.route_scale), ids
     return weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9), ids
 
 
@@ -112,17 +152,24 @@ def ep_layout(cfg: ModelConfig, mesh):
     return n_model, model_axes[0], batch_axes, zaxis
 
 
-def moe_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """x (B, S, d) -> (B, S, d) in x's dtype."""
+def moe_apply(cfg: ModelConfig, p, x: torch.Tensor,
+              layer: int = 0) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d) in x's dtype: the routed experts' part
+    (the shared expert is the caller's). ``layer`` tags the trace."""
     mesh = sharding.active_mesh()
     layout = ep_layout(cfg, mesh)
     if layout is None:
-        return _moe_local(cfg, p, x, 0, cfg.num_experts).to(x.dtype)
+        return _moe_local(cfg, p, x, 0, cfg.experts_here,
+                          layer).to(x.dtype)
+    if cfg.experts_held:
+        raise ValueError(f"{cfg.name}: a layer that holds {cfg.experts_held} "
+                         "of its experts runs with no mesh")
     run = _moe_mesh if sharding.is_dtensor(x) else _moe_emulate
-    return run(cfg, p, x, mesh, *layout)
+    return run(cfg, p, x, mesh, *layout, layer)
 
 
-def _moe_emulate(cfg, p, x, mesh, n_model, maxis, batch_axes, zaxis):
+def _moe_emulate(cfg, p, x, mesh, n_model, maxis, batch_axes, zaxis,
+                 layer):
     sizes = sharding.axis_sizes(mesh)
     n_batch = math.prod(sizes[a] for a in batch_axes)
     B = x.shape[0]
@@ -137,7 +184,7 @@ def _moe_emulate(cfg, p, x, mesh, n_model, maxis, batch_axes, zaxis):
             lo = j * E_local
             pj = {"router": p["router"],
                   **{n: p[n][lo:lo + E_local] for n in EXPERT_WEIGHTS}}
-            part = _moe_local(cfg, pj, xi, lo, E_local)
+            part = _moe_local(cfg, pj, xi, lo, E_local, layer)
             acc = part if acc is None else acc + part
         outs.append(acc)
     return torch.cat(outs, 0).to(x.dtype)
@@ -183,7 +230,7 @@ class _GatherStorage(torch.autograd.Function):
                                       ctx.group)), None, None
 
 
-def _moe_mesh(cfg, p, x, mesh, n_model, maxis, batch_axes, zaxis):
+def _moe_mesh(cfg, p, x, mesh, n_model, maxis, batch_axes, zaxis, layer):
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     names = list(sharding.axis_sizes(mesh))
@@ -218,7 +265,7 @@ def _moe_mesh(cfg, p, x, mesh, n_model, maxis, batch_axes, zaxis):
         pl_local[n] = w.contiguous()          # the kernel takes dense rows
     xl = x.redistribute(mesh, x_pl).to_local(grad_placements=x_grad
                                              ).contiguous()
-    partial = _moe_local(cfg, pl_local, xl, lo, E_local)
+    partial = _moe_local(cfg, pl_local, xl, lo, E_local, layer)
     y = _SumOverModel.apply(partial, (mesh, names.index(maxis))
                             ).to(x.dtype)
     return DTensor.from_local(y, mesh, x_pl, shape=x.shape,
@@ -226,49 +273,109 @@ def _moe_mesh(cfg, p, x, mesh, n_model, maxis, batch_axes, zaxis):
 
 
 def _moe_local(cfg: ModelConfig, p, x: torch.Tensor, e_start: int,
-               E_local: int) -> torch.Tensor:
+               E_local: int, layer: int = 0) -> torch.Tensor:
     """Route ``x``'s tokens, bucket the picks of experts [e_start, e_start
     + E_local) and run them; ``p``'s expert weights hold those E_local
     experts. Returns the float32 partial (B, S, d)."""
     B, S, d = x.shape
     k = cfg.experts_per_token
     T = B * S
-    C = capacity(cfg, T)
     dt = x.dtype
     xf = x.reshape(T, d)
-    weights, ids = route(cfg, p, xf)
-
-    flat_e = ids.reshape(-1)
-    flat_tok = torch.arange(T, device=x.device)[:, None].expand(T, k)
-    hit = (flat_e >= e_start) & (flat_e < e_start + E_local)
-    e_rel = torch.where(hit, flat_e - e_start, E_local)   # spare bucket
-    order = torch.argsort(e_rel, stable=True)
-    e_sorted = e_rel[order]
-    tok_sorted = flat_tok.reshape(-1)[order]
-    # bincount, without the host sync torch.bincount makes on the card
-    counts = torch.zeros(E_local + 1, dtype=torch.long,
-                         device=x.device).index_add_(
-        0, e_sorted, torch.ones_like(e_sorted))
-    starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(T * k, device=x.device) - starts[e_sorted]
+    with device_span("moe_route", layer=layer):
+        weights, ids = route(cfg, p, xf)
+        flat_e = ids.reshape(-1)
+        flat_tok = torch.arange(T, device=x.device)[:, None].expand(T, k)
+        hit = (flat_e >= e_start) & (flat_e < e_start + E_local)
+        e_rel = torch.where(hit, flat_e - e_start, E_local)  # spare bucket
+        order = torch.argsort(e_rel, stable=True)
+        e_sorted = e_rel[order]
+        tok_sorted = flat_tok.reshape(-1)[order]
+        # bincount, without the host sync torch.bincount makes on the card
+        counts = torch.zeros(E_local + 1, dtype=torch.long,
+                             device=x.device).index_add_(
+            0, e_sorted, torch.ones_like(e_sorted))
+        starts = torch.cumsum(counts, 0) - counts
+        pos = torch.arange(T * k, device=x.device) - starts[e_sorted]
+    if cfg.moe_dropless:
+        return _dropless(p, xf, weights.reshape(-1)[order], e_sorted,
+                         tok_sorted, pos, counts, E_local, layer
+                         ).reshape(B, S, d)
+    C = capacity(cfg, T)
     ok = (e_sorted < E_local) & (pos < C)
+    counter("moe_rows_launched", E_local * C, layer=layer)
+    counter("moe_load_reads", load_reads, layer=layer)
 
-    # Buckets (E_local, C, d), a prefix of one buffer with a spare row for
-    # the dropped picks.
-    slot = torch.where(ok, e_sorted * C + pos, E_local * C)
-    buf = torch.zeros((E_local * C + 1, d), dtype=dt, device=x.device)
-    buf[slot] = xf[tok_sorted]
-    xg = buf[:E_local * C].view(E_local, C, d)
+    with device_span("moe_experts", layer=layer):
+        # Buckets (E_local, C, d), a prefix of one buffer with a spare row
+        # for the dropped picks.
+        slot = torch.where(ok, e_sorted * C + pos, E_local * C)
+        buf = torch.zeros((E_local * C + 1, d), dtype=dt, device=x.device)
+        buf[slot] = xf[tok_sorted]
+        yg = _experts(p, buf[:E_local * C].view(E_local, C, d))
 
-    h = torch.nn.functional.silu(ops.moe_gmm(xg, use_param(p["w_gate"], dt))) \
-        * ops.moe_gmm(xg, use_param(p["w_up"], dt))
-    yg = ops.moe_gmm(h, use_param(p["w_down"], dt))
-
-    w_eff = torch.where(ok, weights.reshape(-1)[order], 0.0)
-    picked = yg.reshape(E_local * C, d)[
-        torch.clamp(e_sorted, max=E_local - 1) * C + torch.clamp(pos, max=C - 1)]
-    # multiply in the compute dtype, add in float32 (the reference's casts)
-    contrib = (picked * w_eff[:, None].to(dt)).float()
-    yf = torch.zeros((T, d), dtype=torch.float32, device=x.device)
-    yf.index_add_(0, tok_sorted, contrib)
+    with device_span("moe_combine", layer=layer):
+        w_eff = torch.where(ok, weights.reshape(-1)[order], 0.0)
+        picked = yg.reshape(E_local * C, d)[
+            torch.clamp(e_sorted, max=E_local - 1) * C
+            + torch.clamp(pos, max=C - 1)]
+        # multiply in the compute dtype, add in float32 (the reference's
+        # casts)
+        contrib = (picked * w_eff[:, None].to(dt)).float()
+        yf = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+        yf.index_add_(0, tok_sorted, contrib)
     return yf.reshape(B, S, d)
+
+
+def _experts(p, xg: torch.Tensor, segments=None) -> torch.Tensor:
+    """The held experts' SwiGLU (three grouped matmuls, kernel 2.5): on
+    buckets (E_local, C, d), or given ``segments`` (offsets, tile_expert)
+    on rows (R, d) in expert segments."""
+    dt = xg.dtype
+
+    def gmm(x, name):
+        w = use_param(p[name], dt)
+        return ops.moe_gmm(x, w) if segments is None else \
+            ops.moe_gmm_grouped(x, w, *segments)
+
+    h = torch.nn.functional.silu(gmm(xg, "w_gate")) * gmm(xg, "w_up")
+    return gmm(h, "w_down")
+
+
+def _dropless(p, xf, w_sorted, e_sorted, tok_sorted, pos, counts,
+              E_local: int, layer: int) -> torch.Tensor:
+    """Every held pick runs: one host read of the load ``counts`` sizes
+    the segments (each held expert's load rounded up to ``GROUP_ROWS``),
+    and only the held picks (the sorted order's first) are gathered.
+    Returns the float32 partial (T, d)."""
+    global load_reads
+    load = counts.tolist()
+    load_reads += 1
+    held, top = sum(load[:E_local]), max(load[:E_local])
+    rows = gmm_kernel.GROUP_ROWS
+    R = sum(-(-n // rows) for n in load[:E_local]) * rows
+    T, d = xf.shape
+    dt = xf.dtype
+    counter("moe_rows_routed", held, layer=layer)
+    counter("moe_rows_launched", R, layer=layer)
+    counter("moe_max_load", top, layer=layer)
+    counter("moe_load_reads", load_reads, layer=layer)
+    yf = torch.zeros((T, d), dtype=torch.float32, device=xf.device)
+    if not R:
+        return yf
+    tok = tok_sorted[:held]
+    tiles = torch.div(counts[:E_local] + rows - 1, rows, rounding_mode="floor")
+    offsets = torch.cat([tiles.new_zeros(1), torch.cumsum(tiles, 0) * rows])
+    tile_expert = torch.repeat_interleave(
+        torch.arange(E_local, device=xf.device), tiles, output_size=R // rows)
+    slot = offsets[e_sorted[:held]] + pos[:held]
+    with device_span("moe_experts", layer=layer):
+        buf = torch.zeros((R, d), dtype=dt, device=xf.device)
+        buf[slot] = xf[tok]
+        yg = _experts(p, buf, (offsets.to(torch.int32),
+                               tile_expert.to(torch.int32)))
+    with device_span("moe_combine", layer=layer):
+        picked = yg[slot]
+        contrib = (picked * w_sorted[:held, None].to(dt)).float()
+        yf.index_add_(0, tok, contrib)
+    return yf

@@ -2,6 +2,10 @@
 
   dense / audio / vlm : x += attn(norm(x)); x += mlp(norm(x))
   moe                 : x += attn(norm(x)); x += moe(norm(x))
+                        (+ shared(norm(x)) with a shared expert; the
+                        first ``moe_dense_first_n`` layers take an MLP of
+                        ``dense_d_ff``; ``sandwich_norm`` norms each
+                        sublayer's output before the add: Trinity)
   hybrid (hymba)      : h = norm(x); x += 0.5 (attn(h) + ssd(h)); x += mlp(norm(x))
   ssm (xlstm)         : x += mlstm(norm(x)); x += slstm(norm(x))     [a pair]
 
@@ -14,7 +18,9 @@ scaled by sqrt(d_model) in that dtype.
 
 Params keep the reference's layout (``repro/models/transformer.py``):
 ``{"embed", "head", "final_norm", "blocks"}`` with every block leaf STACKED
-on a leading axis, one entry per layer (per mLSTM/sLSTM pair for xLSTM);
+on a leading axis, one entry per layer (per mLSTM/sLSTM pair for xLSTM;
+a MoE model's leading dense layers stack apart, as ``"dense_blocks"``,
+and ``"blocks"`` holds the MoE layers after them);
 the reference's ``lax.scan`` over the stack is a loop here, each block a
 view of the stack. The decode state is stacked the same way: ``{"kv":
 {"k", "v"}}`` (L, B, T, KV, D), plus ``"ssd": (S, n)`` for the hybrid, or
@@ -71,48 +77,64 @@ def _check_family(cfg: ModelConfig) -> None:
                          "a language model")
 
 
-def _block_init(cfg: ModelConfig, rng: np.random.Generator):
+#: A sandwich-normed block's norms of its sublayers' outputs.
+POST_NORMS = ("post_attn_norm", "post_mlp_norm")
+
+
+def _block_init(cfg: ModelConfig, rng: np.random.Generator,
+                dense: bool = False):
     fam = cfg.family
     if fam == ArchFamily.SSM:  # xLSTM pair
         p = {"mlstm": ssm_mod.mlstm_init(cfg, rng),
              "slstm": ssm_mod.slstm_init(cfg, rng)}
     else:
         p = {"attn": attention_init(cfg, rng)}
-        if fam == ArchFamily.MOE:
+        if fam == ArchFamily.MOE and not dense:
             p["moe"] = moe_init(cfg, rng)
         else:
             if fam == ArchFamily.HYBRID:
                 p["ssd"] = ssm_mod.ssd_init(cfg, rng)
-            p["mlp"] = mlp_init(cfg, rng)
+            p["mlp"] = mlp_init(cfg, rng, cfg.dense_d_ff if dense else 0)
     p["norm1"] = rmsnorm_init(cfg, cfg.d_model)
     p["norm2"] = rmsnorm_init(cfg, cfg.d_model)
+    if cfg.sandwich_norm:
+        for n in POST_NORMS:
+            p[n] = rmsnorm_init(cfg, cfg.d_model)
     return p
 
 
-def _block_axes(cfg: ModelConfig):
+def _block_axes(cfg: ModelConfig, dense: bool = False):
     fam = cfg.family
     if fam == ArchFamily.SSM:
         a = {"mlstm": ssm_mod.mlstm_axes(), "slstm": ssm_mod.slstm_axes()}
     else:
         a = {"attn": attention_axes(cfg)}
-        if fam == ArchFamily.MOE:
-            a["moe"] = moe_axes()
+        if fam == ArchFamily.MOE and not dense:
+            a["moe"] = moe_axes(cfg)
         else:
             if fam == ArchFamily.HYBRID:
                 a["ssd"] = ssm_mod.ssd_axes()
             a["mlp"] = mlp_axes(cfg)
     a["norm1"] = rmsnorm_axes()
     a["norm2"] = rmsnorm_axes()
+    if cfg.sandwich_norm:
+        for n in POST_NORMS:
+            a[n] = rmsnorm_axes()
     return a
 
 
 def num_blocks(cfg: ModelConfig) -> int:
-    """Entries of the block stack: layers, or mLSTM/sLSTM pairs."""
+    """Entries of the block stacks: layers, or mLSTM/sLSTM pairs."""
     if cfg.family == ArchFamily.SSM:
         if cfg.num_layers % 2:
             raise ValueError("xLSTM pairs need an even num_layers")
         return cfg.num_layers // 2
     return cfg.num_layers
+
+
+def num_dense_blocks(cfg: ModelConfig) -> int:
+    """A MoE model's leading dense layers (the ``"dense_blocks"`` stack)."""
+    return cfg.moe_dense_first_n if cfg.family == ArchFamily.MOE else 0
 
 
 def _stack(trees):
@@ -154,8 +176,12 @@ def lm_init(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
     rng = np.random.default_rng(seed)
     params = {"embed": embed_init(cfg, rng), "head": head_init(cfg, rng),
               "final_norm": rmsnorm_init(cfg, cfg.d_model)}
+    n_dense = num_dense_blocks(cfg)
+    if n_dense:
+        params["dense_blocks"] = _stack([_block_init(cfg, rng, dense=True)
+                                         for _ in range(n_dense)])
     params["blocks"] = _stack([_block_init(cfg, rng)
-                               for _ in range(num_blocks(cfg))])
+                               for _ in range(num_blocks(cfg) - n_dense)])
     if is_abstract():
         return params
     return _map(lambda _n, t: t.to(device), params)
@@ -175,9 +201,12 @@ def lm_param_axes(cfg: ModelConfig) -> Dict[str, Any]:
     reference's ``lm_init`` returns second (``launch/sharding.py`` resolves
     it)."""
     _check_family(cfg)
-    return {"embed": embed_axes(), "head": head_axes(cfg),
+    axes = {"embed": embed_axes(), "head": head_axes(cfg),
             "final_norm": rmsnorm_axes(),
             "blocks": _layers(_block_axes(cfg))}
+    if num_dense_blocks(cfg):
+        axes["dense_blocks"] = _layers(_block_axes(cfg, dense=True))
+    return axes
 
 
 def lm_param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
@@ -193,7 +222,25 @@ def compute_params(cfg: ModelConfig, params: Dict[str, Any]) -> Dict[str, Any]:
     return _map(lambda n, t: t if n in F32_LEAVES else t.to(dt), params)
 
 
-def _block_apply(cfg: ModelConfig, p, x, positions):
+def _post(cfg: ModelConfig, p, name: str, y: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output, normed where the block has ``name``."""
+    return rmsnorm(p[name], y, cfg.norm_eps) if name in p else y
+
+
+def _ffn(cfg: ModelConfig, p, x, layer: int) -> torch.Tensor:
+    """The block's second half: x + (MLP, or routed experts plus the
+    shared one)(norm(x))."""
+    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if "moe" in p:
+        y = moe_apply(cfg, p["moe"], h, layer)
+        if "shared" in p["moe"]:
+            y = y + mlp_apply(cfg, p["moe"]["shared"], h)
+    else:
+        y = mlp_apply(cfg, p["mlp"], h)
+    return x + _post(cfg, p, "post_mlp_norm", y)
+
+
+def _block_apply(cfg: ModelConfig, p, x, positions, layer: int = 0):
     fam = cfg.family
     eps = cfg.norm_eps
     x = shard(x, "batch", None, "act_embed")
@@ -207,18 +254,33 @@ def _block_apply(cfg: ModelConfig, p, x, positions):
         x = x + 0.5 * (attention_apply(cfg, p["attn"], h, positions)
                        + ssm_mod.ssd_apply(cfg, p["ssd"], h))
     else:
-        x = x + attention_apply(cfg, p["attn"], h, positions)
-    if fam == ArchFamily.MOE:
-        return x + moe_apply(cfg, p["moe"], rmsnorm(p["norm2"], x, eps))
-    return x + mlp_apply(cfg, p["mlp"], rmsnorm(p["norm2"], x, eps))
+        x = x + _post(cfg, p, "post_attn_norm",
+                      attention_apply(cfg, p["attn"], h, positions, layer))
+    return _ffn(cfg, p, x, layer)
 
 
-def _remat_block(impl: str, cfg: ModelConfig, p, x, positions):
+def _remat_block(impl: str, cfg: ModelConfig, p, x, positions, layer):
     """A checkpointed block under the caller's default kernel impl: the
     backward pass recomputes it on autograd's own thread (on the card),
     where the thread-local default is not the caller's."""
     with ops.default_impl(impl):
-        return _block_apply(cfg, p, x, positions)
+        return _block_apply(cfg, p, x, positions, layer)
+
+
+def _block_views(cfg: ModelConfig, params):
+    """Every layer's block params in order: the leading dense stack's
+    views, then the main stack's."""
+    n_dense = num_dense_blocks(cfg)
+    views = _unstack(params["dense_blocks"], n_dense) if n_dense else []
+    return views + _unstack(params["blocks"], num_blocks(cfg) - n_dense)
+
+
+def _block_at(cfg: ModelConfig, params, i: int):
+    """Layer ``i``'s block params (a view of its stack)."""
+    n_dense = num_dense_blocks(cfg)
+    if i < n_dense:
+        return _layer(params["dense_blocks"], i)
+    return _layer(params["blocks"], i - n_dense)
 
 
 def _scaled(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -252,12 +314,12 @@ def lm_apply(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled()
-    for p in _unstack(params["blocks"], num_blocks(cfg)):
+    for i, p in enumerate(_block_views(cfg, params)):
         if remat:
             x = checkpoint(_remat_block, ops.get_default_impl(), cfg, p, x,
-                           positions, use_reentrant=False)
+                           positions, i, use_reentrant=False)
         else:
-            x = _block_apply(cfg, p, x, positions)
+            x = _block_apply(cfg, p, x, positions, i)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if drop_last_logit:
         x = x[:, :-1]
@@ -338,7 +400,7 @@ def decode_state_axes(cfg: ModelConfig) -> Dict[str, Any]:
     return state
 
 
-def _block_decode(cfg: ModelConfig, p, x, state, length):
+def _block_decode(cfg: ModelConfig, p, x, state, length, layer: int = 0):
     """One block's decode step. The KV cache is written in place; the
     recurrent states come back new."""
     fam = cfg.family
@@ -359,10 +421,8 @@ def _block_decode(cfg: ModelConfig, p, x, state, length):
         ys, new["ssd"] = ssm_mod.ssd_decode(cfg, p["ssd"], h, state["ssd"])
         x = x + 0.5 * (y + ys)
     else:
-        x = x + y
-    if fam == ArchFamily.MOE:
-        return x + moe_apply(cfg, p["moe"], rmsnorm(p["norm2"], x, eps)), new
-    return x + mlp_apply(cfg, p["mlp"], rmsnorm(p["norm2"], x, eps)), new
+        x = x + _post(cfg, p, "post_attn_norm", y)
+    return _ffn(cfg, p, x, layer), new
 
 
 def _store(dst, src) -> None:
@@ -390,8 +450,8 @@ def lm_decode_step(cfg: ModelConfig, params, state, tokens: torch.Tensor,
     x = _scaled(cfg, x)
     for i in range(num_blocks(cfg)):
         st = _layer(state, i)
-        x, new = _block_decode(cfg, _layer(params["blocks"], i), x, st,
-                               length)
+        x, new = _block_decode(cfg, _block_at(cfg, params, i), x, st,
+                               length, i)
         _store(st, new)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed_apply(cfg, params["embed"], params["head"], x)

@@ -960,7 +960,8 @@ def test_sharded_searches_on_one_card_named_four_times(cuda):
 # Flash attention runs forward inside autograd; its backward is the autograd
 # of the plain version on the saved inputs, so the kernel's gradients equal
 # the plain version's bit for bit given the same cotangent. The MoE grouped
-# matmul and the linear scan have no backward pass and refuse a gradient.
+# matmul launches its kernel backward too (on the transposed operands); the
+# linear scan has no backward pass and refuses a gradient.
 
 from repro_torch.kernels import NoKernelGradError  # noqa: E402
 from repro_torch.kernels import ssm_scan as scan_k  # noqa: E402
@@ -1087,8 +1088,9 @@ def test_kernels_without_backward_refuse_gradients(cuda):
     g = torch.Generator(device=cuda).manual_seed(24)
     xg = randn(g, (2, 64, 128), torch.bfloat16)
     wg = randn(g, (2, 128, 64), torch.bfloat16).requires_grad_()
-    with pytest.raises(NoKernelGradError, match="moe_gmm.*no VJP"):
-        gmm.moe_gmm(xg, wg)
+    before = gmm.backward_launches
+    gmm.moe_gmm(xg, wg).sum().backward()   # the grouped matmul has one
+    assert gmm.backward_launches == before + 1 and wg.grad is not None
     with torch.no_grad():
         gmm.moe_gmm(xg, wg)        # inference launches as before
     gmm.moe_gmm(xg, wg.detach())   # nothing needs a gradient
@@ -1106,10 +1108,10 @@ def test_kernels_without_backward_refuse_gradients(cuda):
     y.sum().backward()
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "hymba-1.5b", "xlstm-350m"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
 def test_train_step_through_kernels_without_backward_raises(cuda, arch):
-    """A reduced MoE, hybrid or SSM train step on the card raises under
-    the kernels and trains under the plain versions."""
+    """A reduced hybrid or SSM train step on the card raises under the
+    kernels and trains under the plain versions."""
     import importlib
 
     from repro_torch.config.base import ShapeConfig, TrainConfig
@@ -1193,3 +1195,113 @@ def test_moe_emulate_launches_per_block_and_matches_plain(cuda, layout):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                exp.float().cpu().numpy(), atol=2e-2,
                                rtol=2e-2)
+
+
+# The MoE grouped matmul's backward on the card: dxg = dout wg^T and dwg =
+# xg^T dout, each one launch of the forward kernel on contiguous transposed
+# operands, against the plain version's autograd. float32 (simt) within the
+# forward's 1e-4; bfloat16 (wgmma, C a multiple of 8 as the dropless
+# buckets are) within 2e-2 of the largest gradient, the forward's bf16
+# tolerance.
+GMM_GRAD_CASES = [(2, 128, 256, 128), (16, 256, 2048, 1024),
+                  (16, 256, 1024, 2048), (3, 104, 64, 72)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,din,dout", GMM_GRAD_CASES)
+def test_moe_gmm_backward_matches_plain_autograd(cuda, dtype, E, C, din,
+                                                 dout):
+    g = torch.Generator(device=cuda).manual_seed(E * C + din)
+    xg = randn(g, (E, C, din), dtype).requires_grad_()
+    wg = (randn(g, (E, din, dout), dtype) / din ** 0.5).requires_grad_()
+    cot = torch.randn((E, C, dout), device=cuda, generator=g).to(dtype)
+    before = (gmm.launches, gmm.backward_launches,
+              sum(gmm.launches_by_variant.values()))
+    gmm.moe_gmm(xg, wg).backward(cot)
+    assert gmm.launches == before[0] + 3
+    assert gmm.backward_launches == before[1] + 2
+    assert sum(gmm.launches_by_variant.values()) == before[2] + 3
+    plain = [t.detach().float().requires_grad_() for t in (xg, wg)]
+    gmm.moe_gmm_ref(*plain).backward(cot.float())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, exp in zip((xg.grad, wg.grad), plain):
+        scale = float(exp.grad.abs().max())
+        np.testing.assert_allclose(got.float().cpu(), exp.grad.cpu(),
+                                   atol=tol * scale, rtol=tol)
+
+
+def test_trinity_train_step_on_card_matches_plain(cuda):
+    """The reduced Trinity-Mini (f32) trains a step on the card through
+    the kernels (flash attention, the grouped matmul forward and
+    backward): its loss and gradient norm within 1e-4 of the same step
+    under the plain versions, and kernel 2.5 launched both ways."""
+    import dataclasses
+
+    from repro_torch.config.base import ShapeConfig, TrainConfig
+    from repro_torch.configs import trinity_mini
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step, synth_batch
+
+    cfg = dataclasses.replace(trinity_mini.reduced(), dtype="float32")
+    step, opt_init = make_train_step(cfg, TrainConfig())
+    batch = synth_batch(cfg, ShapeConfig("t", 32, 2, "train"), device=cuda)
+    out = {}
+    for impl in ("cuda", "ref"):
+        params = tfm.lm_init(cfg, seed=0, device=cuda)
+        before = (gmm.launches, gmm.backward_launches)
+        with ops.default_impl(impl):
+            _, _, m = step(params, opt_init(params), batch)
+        out[impl] = (float(m["loss"]), float(m["grad_norm"]),
+                     gmm.launches - before[0],
+                     gmm.backward_launches - before[1])
+    assert out["ref"][2:] == (0, 0)
+    assert out["cuda"][2] > 0 and out["cuda"][3] > 0
+    np.testing.assert_allclose(out["cuda"][:2], out["ref"][:2], rtol=1e-4)
+
+
+# The grouped form of the grouped matmul (dropless routing): expert e's rows
+# in one segment of 128-row multiples, one launch over the row tiles
+# forward, the rows form on the weights' transpose and the contraction form
+# backward; against the plain per-segment product's autograd, with an
+# empty expert, at Trinity-Mini's widths (2048 x 1024) and a small f32 one.
+GMM_GROUPED_CASES = [((2100, 0, 1900, 2048), 2048, 1024, torch.bfloat16),
+                     ((130, 0, 5, 256), 64, 72, torch.bfloat16),
+                     ((130, 0, 5, 256), 48, 40, torch.float32)]
+
+
+@pytest.mark.parametrize("loads,din,dout,dtype", GMM_GROUPED_CASES)
+def test_moe_gmm_grouped_matches_plain_autograd(cuda, loads, din, dout,
+                                                dtype):
+    rows = gmm.GROUP_ROWS
+    tiles = [-(-n // rows) for n in loads]
+    offsets = torch.tensor([0] + list(np.cumsum(tiles) * rows),
+                           dtype=torch.int32, device=cuda)
+    tile_expert = torch.repeat_interleave(
+        torch.arange(len(loads), device=cuda),
+        torch.tensor(tiles, device=cuda)).int()
+    g = torch.Generator(device=cuda).manual_seed(din + dout)
+    R, o = sum(tiles) * rows, offsets.tolist()
+    x = torch.zeros((R, din), device=cuda, dtype=dtype)
+    for e, n in enumerate(loads):
+        x[o[e]:o[e] + n] = randn(g, (n, din), dtype)
+    x.requires_grad_()
+    wg = (randn(g, (len(loads), din, dout), dtype) / din ** 0.5
+          ).requires_grad_()
+    cot = torch.randn((R, dout), device=cuda, generator=g).to(dtype)
+    before = (gmm.launches, gmm.backward_launches)
+    out = gmm.moe_gmm_grouped(x, wg, offsets, tile_expert)
+    out.backward(cot)
+    assert (gmm.launches, gmm.backward_launches) == (before[0] + 3,
+                                                     before[1] + 2)
+    plain = [t.detach().float().requires_grad_() for t in (x, wg)]
+    exp = torch.cat([plain[0][o[e]:o[e + 1]] @ plain[1][e]
+                     for e in range(len(loads))])
+    exp.backward(cot.float())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in ((out, exp), (x.grad, plain[0].grad),
+                      (wg.grad, plain[1].grad)):
+        scale = float(want.detach().abs().max())
+        np.testing.assert_allclose(got.detach().float().cpu(),
+                                   want.detach().cpu(), atol=tol * scale,
+                                   rtol=tol)
+    assert float(wg.grad[1].abs().max()) == 0.0   # the empty expert

@@ -47,7 +47,7 @@ def max_err(a, b) -> float:
 def test_registry_lists_the_paper_zoo():
     llms = ("qwen3-1.7b", "qwen3-8b", "glm4-9b", "deepseek-67b", "dbrx-132b",
             "kimi-k2-1t-a32b", "hymba-1.5b", "xlstm-350m", "musicgen-medium",
-            "paligemma-3b")
+            "paligemma-3b", "trinity-mini", "trinity-mini-ep8-8l")
     assert tuple(sorted(ARCHS + llms)) == tuple(list_archs())
     assert get_arch("musicgen-medium").family.value == "audio"
     assert get_arch("paligemma-3b").family.value == "vlm"

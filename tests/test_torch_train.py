@@ -286,14 +286,28 @@ def test_train_cli_defaults_to_the_card():
         100, 8, 128, 3e-4, 25)
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "hymba-1.5b", "xlstm-350m"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
 def test_train_cli_refuses_kernel_gradients_on_the_card(arch, tmp_path):
-    """On the card the MoE, hybrid and SSM families would train through
-    kernels with no backward pass: the CLI raises before its first step
-    (no card is touched, so this runs on the CPU too)."""
+    """On the card the hybrid and SSM families would train through the
+    linear scan, which has no backward pass: the CLI raises before its
+    first step (no card is touched, so this runs on the CPU too)."""
     with pytest.raises(NoKernelGradError, match='impl="ref"'):
         port_train.main(["--arch", arch, "--reduced", "--ckpt-dir",
                          str(tmp_path), "--device", "cuda"])
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b",
+                                  "trinity-mini", "trinity-mini-ep8-8l"])
+def test_train_cli_takes_moe_on_the_card(arch):
+    """The MoE family trains on the card through the grouped matmul's
+    backward: the CLI's guard lets it through under the kernels."""
+    from repro_torch.launch.serve import load_config
+
+    port_train.refuse_kernels_without_backward(load_config(arch, True),
+                                               "cuda")
+    with pytest.raises(NoKernelGradError, match="linear_scan"):
+        port_train.refuse_kernels_without_backward(
+            load_config("hymba-1.5b", True), "cuda")
 
 
 def test_remat_recompute_keeps_the_callers_kernel_impl():
